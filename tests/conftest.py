@@ -28,6 +28,12 @@ if str(REPO_ROOT) not in sys.path:
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips with a reason where there is none"
+    )
+
+
 @pytest.fixture(scope="session")
 def data_dir() -> Path:
     return REPO_ROOT / "tests" / "data"
