@@ -5,16 +5,23 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
 
 1. device — require CUDA; print the card's name and power limit;
 2. build — compile ``tpuslam_torch/csrc/*.cu`` for sm_90a from this checkout;
-3. kernels — each of the four kernels against its plain PyTorch twin on the
-   card, at the main path's shapes, on inputs made from the KITTI fixtures:
-   kernels 1-3 exact, kernel 4 to rtol 1e-5; median times of both (CUDA events);
-4. frontend — ``FeatureDetector`` on 2 frames on the card and on the CPU:
-   keypoints and descriptors identical;
+3. kernels — each of the five kernels against its plain PyTorch twin on the
+   card, on inputs made from the KITTI fixtures: kernels 1-4 at the main
+   path's shapes (1-3 exact, 4 to rtol 1e-5), kernel 5 exact at the
+   pyramid's four level shapes; median times of both (CUDA events);
+4. frontend — ``FeatureDetector`` on 2 frames on the card and on the CPU,
+   with ``configs/`` and with ``configs/multiscale`` (fused NMS): keypoints
+   and descriptors identical;
 5. main path — VO with ``configs/`` at batch 16 over 96 frames (the fixtures
    ping-pong tiled, as ``bench.py`` does), one warm-up pass, then a timed
-   pass with the kernels' launch counters zeroed just before it: every
-   counter must be > 0, ``pose_ok`` must hold on >= 90% of frames 1..95, and
-   the inter-frame motion must be dominantly along +-z.
+   pass with the kernels' launch counters zeroed just before it: kernels
+   1-4 launched (6 each), kernel 5 not; ``pose_ok`` on >= 90% of frames
+   1..95, and the inter-frame motion dominantly along +-z;
+6. pyramid path — the same with ``configs/multiscale`` (4 levels, full
+   width) and ``nms_fused=True``: exactly 24 launches of kernel 5 (4 levels
+   x 6 chunks) and none of kernel 1 in the timed pass, then the same path
+   with ``nms_fused=False`` (24 of kernel 1, none of kernel 5), timed in
+   turns (fused, kernel 1, kernel 1, fused) for frames/s of each.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -39,6 +46,7 @@ RTOL_MSAC = 1e-5  # kernel 4 sums its 1024 matches in another order than the twi
 # Kernel wrapper name → (its CUDA source, the Pallas kernel it replaces).
 KERNELS = {
     "fused_frontend_batch": ("tpuslam_torch/csrc/frontend.cu", "tpuslam/kernels/frontend_pallas.py:115"),
+    "fused_frontend_nms_batch": ("tpuslam_torch/csrc/nms.cu", "tpuslam/kernels/frontend_pallas.py:397"),
     "extract_brief_patches": ("tpuslam_torch/csrc/brief.cu", "tpuslam/kernels/brief_pallas.py:62"),
     "brief_own_bin_dots": ("tpuslam_torch/csrc/brief.cu", "tpuslam/kernels/brief_pallas.py:159"),
     "msac_scores": ("tpuslam_torch/csrc/pose.cu", "tpuslam/kernels/pose_pallas.py:54"),
@@ -84,6 +92,29 @@ def load_frames(n_frames: int) -> np.ndarray:
     return np.stack([base[i] for i in idx])
 
 
+def check_record(name, got, want, ms, plain_ms, exact) -> dict:
+    """Hold a kernel's outputs against its twin's; its JSON record."""
+    if exact:
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                bad = int((g != w).sum())
+                raise AssertionError(f"{name}: kernel disagrees with its twin at {bad} elements")
+        err = 0.0
+    else:
+        g, w = got[0], want[0]
+        if not torch.allclose(g, w, rtol=RTOL_MSAC, atol=0.0):
+            raise AssertionError(
+                f"{name}: max rel err {float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())}"
+            )
+        err = float((g - w).abs().max())
+    src, replaces = KERNELS[name]
+    rec = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    log(f"[kernels] {name}: {tuple(got[0].shape)} max_abs_err={err} "
+        f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    return rec
+
+
 def phase_kernels(pipeline, frames: torch.Tensor) -> list[dict]:
     """Kernels 1-4 against their twins at the main path's shapes."""
     from tpuslam_torch.common.camera import undistort_batch
@@ -102,24 +133,7 @@ def phase_kernels(pipeline, frames: torch.Tensor) -> list[dict]:
     records = []
 
     def record(name, got, want, ms, plain_ms, exact):
-        if exact:
-            for g, w in zip(got, want):
-                if not torch.equal(g, w):
-                    bad = int((g != w).sum())
-                    raise AssertionError(f"{name}: kernel disagrees with its twin at {bad} elements")
-            err = 0.0
-        else:
-            g, w = got[0], want[0]
-            if not torch.allclose(g, w, rtol=RTOL_MSAC, atol=0.0):
-                raise AssertionError(
-                    f"{name}: max rel err {float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())}"
-                )
-            err = float((g - w).abs().max())
-        src, replaces = KERNELS[name]
-        records.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-        log(f"[kernels] {name}: {tuple(got[0].shape)} max_abs_err={err} "
-            f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+        records.append(check_record(name, got, want, ms, plain_ms, exact))
 
     # Kernel 1: blur + FAST on (16, 512, 1392) u8.
     args = dict(threshold=c.intensity_threshold, contiguous=c.contiguous_pixels_threshold, taps=det.blur_kernel)
@@ -183,25 +197,101 @@ def phase_kernels(pipeline, frames: torch.Tensor) -> list[dict]:
     return records
 
 
-def phase_frontend(config_dir: Path, frames: np.ndarray) -> None:
+def phase_kernel5(pipeline, frames: torch.Tensor) -> dict:
+    """Kernel 5 against its twin at the pyramid's level shapes, on resized undistorted frames."""
+    from tpuslam_torch.common.camera import undistort_batch
+    from tpuslam_torch.frontend.detector import resize_batch_u8
+    from tpuslam_torch.kernels import frontend as kf
+
+    det = pipeline.detector
+    c = det.config
+    und = undistort_batch(frames, pipeline.undistort_idx, pipeline.undistort_valid)
+    args = dict(threshold=c.intensity_threshold, contiguous=c.contiguous_pixels_threshold,
+                window=c.suppression_window_size, taps=det.blur_kernel)
+    levels = det._feasible_levels(*und.shape[-2:])
+    shapes = []
+    for level, h, w in levels:
+        img = und if level == 0 else resize_batch_u8(und, h, w)
+        got = kf.fused_frontend_nms_batch(img, **args)
+        want = kf.fused_frontend_nms_reference(img, **args)
+        ms = time_ms(lambda: kf.fused_frontend_nms_batch(img, **args))
+        plain = time_ms(lambda: kf.fused_frontend_nms_reference(img, **args))
+        shapes.append(check_record("fused_frontend_nms_batch", got, want, ms, plain, exact=True))
+        if int((got[1] > 0).sum()) < BATCH * 100:
+            raise AssertionError(f"kernel 5: too few survivors at {tuple(img.shape)}")
+    rec = dict(shapes[0])
+    rec["ms"] = sum(r["ms"] for r in shapes)  # one 16-frame chunk: the four level shapes
+    rec["plain_ms"] = sum(r["plain_ms"] for r in shapes)
+    rec["per_level"] = [{"shape": [BATCH, h, w], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+                        for (_, h, w), r in zip(levels, shapes)]
+    return rec
+
+
+def phase_frontend(cfg_path: Path, frames: np.ndarray, nms_fused: bool) -> None:
     """FeatureDetector on 2 frames, card vs CPU: identical keypoints and descriptors."""
     from tpuslam_torch.config.schema import DetectorConfig
     from tpuslam_torch.frontend.detector import FeatureDetector
 
-    cfg = DetectorConfig.from_yaml(config_dir / "feature_detector.yml")
+    cfg = DetectorConfig.from_yaml(cfg_path)
     x = torch.from_numpy(frames[:2].copy())
-    kg, dg = FeatureDetector(cfg, device="cuda").detect_and_compute_batch(x.cuda())
-    kc, dc = FeatureDetector(cfg, device="cpu").detect_and_compute_batch(x)
+    kg, dg = FeatureDetector(cfg, device="cuda", nms_fused=nms_fused).detect_and_compute_batch(x.cuda())
+    kc, dc = FeatureDetector(cfg, device="cpu", nms_fused=nms_fused).detect_and_compute_batch(x)
+    label = f"{cfg_path.parent.name}/{cfg_path.name}, {cfg.num_levels} level(s), nms_fused={nms_fused}"
     for name in ("xy", "response", "valid"):
         if not torch.equal(getattr(kg, name).cpu(), getattr(kc, name)):
-            raise AssertionError(f"frontend: keypoint {name} differs between the card and the CPU")
+            raise AssertionError(f"frontend ({label}): keypoint {name} differs between the card and the CPU")
     if not torch.equal(dg.cpu(), dc):
-        raise AssertionError("frontend: descriptors differ between the card and the CPU")
+        raise AssertionError(f"frontend ({label}): descriptors differ between the card and the CPU")
     angle_err = float((kg.angle.cpu() - kc.angle).abs().max())
     if angle_err > 1e-3:  # atan2 is a libm call on each side
-        raise AssertionError(f"frontend: angles differ by {angle_err} deg")
-    log(f"[frontend] card == CPU on 2 frames: {int(kc.valid.sum())} keypoints, "
+        raise AssertionError(f"frontend ({label}): angles differ by {angle_err} deg")
+    log(f"[frontend] {label}: card == CPU on 2 frames: {int(kc.valid.sum())} keypoints, "
         f"descriptors identical, max angle diff {angle_err:.2e} deg")
+
+
+def drive(pipeline, chunks: torch.Tensor, valid: torch.Tensor, seed: int):
+    """One pass over the chunks with the launch counters zeroed just before it."""
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result, _ = pipeline.process_sequence(chunks, valid, pipeline.initial_state(), seed=seed)
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, launch_counts()
+
+
+def check_launches(label: str, counts: dict, expected: dict) -> None:
+    """``expected``: wrapper name → exact count, or None for "at least once"."""
+    log(f"[{label}] launches {counts}")
+    for name, want in expected.items():
+        got = counts[name]
+        if (got <= 0) if want is None else (got != want):
+            raise AssertionError(f"{label}: {name} launched {got} times, expected "
+                                 f"{'> 0' if want is None else want}")
+
+
+def check_trajectory(label: str, result, run_s: float, card: str) -> float:
+    """pose_ok on >= 90% of frames 1.., motion dominantly along +z; returns frames/s."""
+    poses = result.poses.reshape(-1, 4, 4).cpu().numpy().astype(np.float64)
+    pose_ok = result.pose_ok.reshape(-1).cpu().numpy()
+    n_inl = result.num_inliers.reshape(-1).cpu().numpy()
+    if not np.isfinite(poses).all():
+        raise AssertionError(f"{label}: non-finite poses")
+    n = len(poses)
+    ok_frac = float(pose_ok[1:].mean())
+    rel = np.stack([np.linalg.inv(poses[i - 1]) @ poses[i] for i in range(1, n)])
+    step = rel[:, :3, 3][pose_ok[1:]]
+    z_dominant = float(np.mean(np.abs(step[:, 2]) >= 0.9 * np.linalg.norm(step, axis=1)))
+    fps = n / run_s
+    log(f"[{label}] VO {n} frames batch {BATCH}: timed {run_s:.3f} s = {fps:.2f} frames/s on "
+        f"{card}; pose_ok {ok_frac:.3f} of frames 1..{n - 1}, median inliers "
+        f"{float(np.median(n_inl[1:])):.0f}, z-dominant steps {z_dominant:.3f}, "
+        f"z after frame 9 {poses[9, 2, 3]:.3f}")
+    if ok_frac < 0.9:
+        raise AssertionError(f"{label}: pose_ok on only {ok_frac:.3f} of frames")
+    if z_dominant < 0.9 or poses[9, 2, 3] <= 0:
+        raise AssertionError(f"{label}: motion is not dominantly along +z")
+    return fps
 
 
 def main() -> int:
@@ -210,7 +300,6 @@ def main() -> int:
         return 1
     from tpuslam_torch.common.camera import Camera
     from tpuslam_torch.config.schema import SlamConfig
-    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
     from tpuslam_torch.kernels.build import library
     from tpuslam_torch.model.slam import SlamPipeline
 
@@ -226,53 +315,62 @@ def main() -> int:
             log(f"[build] {line.strip()}")
 
     config_dir = REPO / "configs"
+    pyramid_dir = config_dir / "multiscale"
     camera = Camera.from_yaml(config_dir / "camera.yml")
-    config = SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH)
-    pipeline = SlamPipeline(camera, config, device="cuda")
+    pipeline = SlamPipeline(camera, SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH), device="cuda")
+    pyr_config = SlamConfig.from_yaml_dir(pyramid_dir, batch_size=BATCH)
+    pyr_camera = Camera.from_yaml(pyramid_dir / "camera.yml")
+    pyramid = {fused: SlamPipeline(pyr_camera, pyr_config, device="cuda", nms_fused=fused)
+               for fused in (True, False)}
     frames_np = load_frames(N_FRAMES)
     frames = torch.from_numpy(frames_np).cuda()
 
     records = phase_kernels(pipeline, frames[:BATCH])
-    phase_frontend(config_dir, frames_np)
+    records.insert(1, phase_kernel5(pyramid[True], frames[:BATCH]))
+    phase_frontend(config_dir / "feature_detector.yml", frames_np, nms_fused=False)
+    phase_frontend(pyramid_dir / "feature_detector.yml", frames_np, nms_fused=True)
 
     chunks = frames.reshape(-1, BATCH, *frames.shape[1:])
     valid = torch.ones(chunks.shape[:2], dtype=torch.bool)
-    t0 = time.perf_counter()
-    pipeline.process_sequence(chunks, valid, pipeline.initial_state(), seed=1)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    result, state = pipeline.process_sequence(chunks, valid, pipeline.initial_state(), seed=0)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    counts = launch_counts()
-    log(f"[main] launches {counts}")
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"main path did not launch: {missing}")
-    poses = result.poses.reshape(-1, 4, 4).cpu().numpy().astype(np.float64)
-    pose_ok = result.pose_ok.reshape(-1).cpu().numpy()
-    n_inl = result.num_inliers.reshape(-1).cpu().numpy()
-    if not np.isfinite(poses).all():
-        raise AssertionError("non-finite poses")
-    ok_frac = float(pose_ok[1:].mean())
-    rel = np.stack([np.linalg.inv(poses[i - 1]) @ poses[i] for i in range(1, len(poses))])
-    step = rel[:, :3, 3][pose_ok[1:]]
-    z_dominant = float(np.mean(np.abs(step[:, 2]) >= 0.9 * np.linalg.norm(step, axis=1)))
-    fps = N_FRAMES / run_s
-    log(f"[main] VO {N_FRAMES} frames batch {BATCH}: warm-up {warm_s:.2f} s, timed {run_s:.3f} s "
-        f"= {fps:.2f} frames/s on {card}; pose_ok {ok_frac:.3f} of frames 1..{N_FRAMES - 1}, "
-        f"median inliers {float(np.median(n_inl[1:])):.0f}, z-dominant steps {z_dominant:.3f}, "
-        f"z after frame 9 {poses[9, 2, 3]:.3f}")
-    if ok_frac < 0.9:
-        raise AssertionError(f"pose_ok on only {ok_frac:.3f} of frames")
-    if z_dominant < 0.9 or poses[9, 2, 3] <= 0:
-        raise AssertionError("motion is not dominantly along +z")
+    n_chunks = chunks.shape[0]
+    main_uses = ("fused_frontend_batch", "extract_brief_patches", "brief_own_bin_dots", "msac_scores")
+
+    # Main path: configs/, kernels 1-4.
+    drive(pipeline, chunks, valid, seed=1)  # warm-up
+    result, run_s, main_counts = drive(pipeline, chunks, valid, seed=0)
+    check_launches("main", main_counts, {**{k: None for k in main_uses}, "fused_frontend_nms_batch": 0})
+    fps = check_trajectory("main", result, run_s, card)
+
+    # Pyramid path: configs/multiscale, kernel 5 on every level, then kernel 1 on every level.
+    n_levels = len(pyramid[True].detector._feasible_levels(*frames.shape[-2:]))
+    per_level = n_levels * n_chunks
+    expected = {
+        fused: {"fused_frontend_nms_batch": per_level if fused else 0,
+                "fused_frontend_batch": 0 if fused else per_level,
+                "extract_brief_patches": per_level, "brief_own_bin_dots": per_level,
+                "msac_scores": None}
+        for fused in (True, False)
+    }
+    for fused in (True, False):
+        drive(pyramid[fused], chunks, valid, seed=1)  # warm-up
+    pyr_fps = {True: [], False: []}
+    pyr_counts = {}
+    for fused in (True, False, False, True):  # in turns, against drift
+        result, run_s, counts = drive(pyramid[fused], chunks, valid, seed=0)
+        label = f"pyramid nms_fused={fused}"
+        if fused not in pyr_counts:
+            check_launches(label, counts, expected[fused])
+            pyr_counts[fused] = counts
+        pyr_fps[fused].append(check_trajectory(label, result, run_s, card))
+    log(f"[pyramid] {n_levels} levels, {N_FRAMES} frames batch {BATCH}: frames/s with kernel 5 "
+        f"{pyr_fps[True]}, with kernel 1 + NMS {pyr_fps[False]} on {card}")
 
     for r in records:
-        r["launches"] = counts[r["name"]]
-    log(json.dumps({"kernels": records, "vo_fps": fps, "vo_frames": N_FRAMES, "batch": BATCH}))
+        on_pyramid = r["name"] == "fused_frontend_nms_batch"
+        r["path"] = "pyramid (configs/multiscale, nms_fused)" if on_pyramid else "main (configs/)"
+        r["launches"] = (pyr_counts[True] if on_pyramid else main_counts)[r["name"]]
+    log(json.dumps({"kernels": records, "vo_fps": fps, "vo_frames": N_FRAMES, "batch": BATCH,
+                    "pyramid_fps_nms_fused": pyr_fps[True], "pyramid_fps_kernel1": pyr_fps[False]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,10 +1,11 @@
 """tpuslam_torch's frontend against tpuslam on the CPU.
 
-Kernel 1's plain twin against ``fused_frontend_batch`` run in Pallas
-interpret mode (the ``pl.pallas_call`` patch of ``test_pallas_frontend.py``),
-keypoint selection against the reference, and the whole detector batch
-(keypoints and descriptors) against the reference's CPU quantised path.
-All integer stages are compared bit for bit.
+Kernel 1's and kernel 5's plain twins against ``fused_frontend_batch`` and
+``fused_frontend_nms_batch`` run in Pallas interpret mode (the
+``pl.pallas_call`` patch of ``test_pallas_frontend.py``), keypoint
+selection against the reference, and the whole detector batch (keypoints
+and descriptors) against the reference's CPU quantised path.  All integer
+stages are compared bit for bit.
 """
 
 import dataclasses
@@ -22,7 +23,12 @@ from tpuslam_torch.config.schema import DetectorConfig as TDetectorConfig
 from tpuslam_torch.frontend import fast as tfast
 from tpuslam_torch.frontend.brief import gaussian_kernel
 from tpuslam_torch.frontend.detector import FeatureDetector as TDetector
-from tpuslam_torch.kernels.frontend import fused_frontend_batch, fused_frontend_reference
+from tpuslam_torch.kernels.frontend import (
+    fused_frontend_batch,
+    fused_frontend_nms_batch,
+    fused_frontend_nms_reference,
+    fused_frontend_reference,
+)
 
 
 @pytest.fixture(scope="module")
@@ -35,24 +41,27 @@ def taps():
     return torch.from_numpy(gaussian_kernel().astype(np.float32))
 
 
-@pytest.fixture(scope="module")
-def pallas_out(crop):
+def _pallas_interpret(fn_name: str, crop: np.ndarray, **kw) -> tuple[np.ndarray, ...]:
+    """Run a Pallas frontend kernel of the reference in interpret mode on one crop."""
     from tpuslam.kernels import frontend_pallas as fp
 
     orig = fp.pl.pallas_call
 
-    def interp_call(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
+    def interp_call(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
 
     fp.pl.pallas_call = interp_call
     try:
-        out = fp.fused_frontend_batch.__wrapped__(
-            jnp.asarray(crop)[None], threshold=20, contiguous=12
-        )
+        out = getattr(fp, fn_name).__wrapped__(jnp.asarray(crop)[None], **kw)
     finally:
         fp.pl.pallas_call = orig
     return tuple(np.asarray(o[0]) for o in out)
+
+
+@pytest.fixture(scope="module")
+def pallas_out(crop):
+    return _pallas_interpret("fused_frontend_batch", crop, threshold=20, contiguous=12)
 
 
 def test_kernel1_twin_bit_exact_with_pallas(crop, taps, pallas_out):
@@ -63,6 +72,48 @@ def test_kernel1_twin_bit_exact_with_pallas(crop, taps, pallas_out):
     np.testing.assert_array_equal(corner[0].numpy(), pallas_out[1])
     # Zero padding on both sides: the score agrees at every pixel.
     np.testing.assert_array_equal(score[0].numpy(), pallas_out[2])
+
+
+@pytest.mark.parametrize("window", [5, 12, 14])
+def test_kernel5_twin_bit_exact_with_pallas(crop, taps, window):
+    """Kernel 5's twin: blur and post-NMS key plane equal the Pallas kernel's, bit for bit."""
+    want_blur, want_key = _pallas_interpret(
+        "fused_frontend_nms_batch", crop, threshold=20, contiguous=12, window=window
+    )
+    blur, key = fused_frontend_nms_batch(
+        torch.from_numpy(crop)[None], threshold=20, contiguous=12, window=window, taps=taps
+    )
+    assert key.dtype == torch.int64 and want_key.dtype == np.uint32
+    assert int((key > 0).sum()) > 50
+    np.testing.assert_array_equal(key[0].numpy(), want_key.astype(np.int64))
+    np.testing.assert_array_equal(blur[0].numpy(), want_blur)
+
+
+def test_kernel5_wrapper_on_cpu_is_the_twin(crop, taps):
+    x = torch.from_numpy(np.stack([crop, crop[::-1].copy()]))
+    args = dict(threshold=20, contiguous=9, window=12, taps=taps)
+    for u, v in zip(fused_frontend_nms_batch(x, **args), fused_frontend_nms_reference(x, **args)):
+        assert torch.equal(u, v)
+    with pytest.raises(ValueError, match="window"):
+        fused_frontend_nms_batch(x, threshold=20, contiguous=9, window=15, taps=taps)
+
+
+@pytest.mark.parametrize("window,max_kp", [(12, 256), (5, 64)])
+def test_select_from_key_matches(crop, window, max_kp):
+    """The top-k over a post-NMS key plane equals the reference's and the port's select_keypoints."""
+    corner, score = jfast.fast_response_and_mask(jnp.asarray(crop), 20, 12)
+    jkey = jfast._packed_key(score, jfast.local_max_nms(corner, score, window))
+    want = jfast.select_from_key(jkey, window=window, max_keypoints=max_kp)
+    key = torch.from_numpy(np.asarray(jkey).astype(np.int64))[None]
+    got = tfast.select_from_key(key, window=window, max_keypoints=max_kp)
+    direct = tfast.select_keypoints(
+        torch.from_numpy(np.array(corner))[None], torch.from_numpy(np.array(score))[None],
+        nms=True, window=window, max_keypoints=max_kp,
+    )
+    assert int(np.asarray(want.valid).sum()) > 0
+    for field in ("xy", "response", "valid"):
+        np.testing.assert_array_equal(getattr(got, field)[0].numpy(), np.asarray(getattr(want, field)))
+        assert torch.equal(getattr(got, field), getattr(direct, field)), field
 
 
 def test_kernel1_wrapper_on_cpu_is_the_twin(crop, taps):
@@ -132,7 +183,5 @@ def test_detector_batch_matches_reference(kitti_frames, detector_pair):
 
 def test_detector_rejects_unported_options(data_dir):
     cfg = TDetectorConfig()
-    with pytest.raises(NotImplementedError, match="pyramid"):
-        TDetector(dataclasses.replace(cfg, num_levels=2, brief_quantized_bins=16))
     with pytest.raises(NotImplementedError, match="BriefQuantizedBins"):
         TDetector(dataclasses.replace(cfg, brief_quantized_bins=0))

@@ -1,12 +1,12 @@
-"""The four CUDA kernels against their plain twins, on the card.
+"""The five CUDA kernels against their plain twins, on the card.
 
 Marked ``cuda``: every test skips (with its reason) where there is no
 CUDA device; the decision is taken inside the fixture, not at import.  The
 file needs neither JAX nor OpenCV, so on a GPU machine without them it runs
 without the suite's conftest:
 ``python -m pytest tests/test_torch_kernels_cuda.py --noconftest -p no:cacheprovider``.
-Kernels 1-3 must match exactly; kernel 4 to rtol 1e-5, because it sums the
-matches in another order than the twin.
+Kernels 1-3 and 5 must match exactly; kernel 4 to rtol 1e-5, because it
+sums the matches in another order than the twin.
 """
 
 from pathlib import Path
@@ -52,6 +52,21 @@ def test_kernel1_frontend_exact(frames):
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w)
         assert int(got[1].sum()) > 500
+
+
+@pytest.mark.parametrize("window", [5, 12, 14])
+def test_kernel5_fused_nms_exact(frames, window):
+    taps = torch.from_numpy(gaussian_kernel().astype(np.float32))
+    for contiguous in (9, 12):
+        args = dict(threshold=20, contiguous=contiguous, window=window, taps=taps)
+        before = kf.fused_frontend_nms_batch.launches
+        got = kf.fused_frontend_nms_batch(frames, **args)
+        want = kf.fused_frontend_nms_reference(frames, **args)
+        torch.cuda.synchronize()
+        assert kf.fused_frontend_nms_batch.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        assert int((got[1] > 0).sum()) > 100
 
 
 def test_kernel2_patches_exact(frames, dev):

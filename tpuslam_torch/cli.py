@@ -3,10 +3,12 @@
 The VO subset of ``tools/cli.py``::
 
     python -m tpuslam_torch.cli -c configs -v tests/data/images -o traj.txt \\
-        [--batch-size 16] [--stats] [--device cuda]
+        [--batch-size 16] [--stats] [--device cuda] [--nms-fused]
 
 writes a KITTI-format trajectory (12 values per row).  ``--stats`` prints
 one JSON line with the frame count, wall time and pose statistics.
+``-c configs/multiscale`` runs the 4-level image pyramid; ``--nms-fused``
+detects with kernel 5 (blur + FAST + NMS in one pass) where a level allows.
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="stop after this many frames (0 = all)")
     parser.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu",
                         help="torch device (default: cuda when available, else cpu)")
+    parser.add_argument("--nms-fused", action="store_true",
+                        help="detect with the fused blur+FAST+NMS kernel where a level allows it")
     parser.add_argument("--stats", action="store_true", help="print run stats as JSON")
     args = parser.parse_args(argv)
 
@@ -64,7 +68,7 @@ def main(argv: list[str] | None = None) -> int:
     config = SlamConfig.from_yaml_dir(
         cfg_dir, frame_skip=args.frame_skip, batch_size=args.batch_size
     )
-    pipeline = SlamPipeline(camera, config, device=args.device)
+    pipeline = SlamPipeline(camera, config, device=args.device, nms_fused=args.nms_fused)
     stream = FrameStream(args.stream, frame_skip=args.frame_skip)
     log.info("Stream %s: %d frames on %s", args.stream, stream.total_frames, args.device)
 

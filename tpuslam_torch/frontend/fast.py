@@ -94,13 +94,18 @@ def _packed_key(score: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """
     h, w = score.shape[-2:]
     n = h * w
+    idx = torch.arange(n, dtype=torch.int64, device=score.device).reshape(h, w)
+    inv_idx = (n - 1 - idx) >> idx_shift(n)
+    key = (score.to(torch.int64) << _IDX_BITS) | inv_idx
+    return torch.where(mask, key, 0)
+
+
+def idx_shift(n: int) -> int:
+    """Right shift that fits the raster index of an ``n``-pixel plane in the key's 20 bits."""
     shift = 0
     while (n >> shift) > (1 << _IDX_BITS) - 1:
         shift += 1
-    idx = torch.arange(n, dtype=torch.int64, device=score.device).reshape(h, w)
-    inv_idx = (n - 1 - idx) >> shift
-    key = (score.to(torch.int64) << _IDX_BITS) | inv_idx
-    return torch.where(mask, key, 0)
+    return shift
 
 
 def _window_max(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
@@ -163,18 +168,38 @@ def select_keypoints(
     b, h, w = corner.shape
     n = h * w
     key = _packed_key(score, keep)
-    tile = window
-    n_tiles = -(-h // tile) * (-(-w // tile))
-    if nms and tile >= 2 and n < (1 << _IDX_BITS) and n_tiles >= max_keypoints:
-        pooled = _tile_max(key, tile)
-        top_keys = torch.sort(pooled, dim=-1, descending=True, stable=True).values
-        top_keys = top_keys[:, :max_keypoints]
-        top_idx = n - 1 - (top_keys & ((1 << _IDX_BITS) - 1))
-    else:
-        flat = key.reshape(b, n)
-        top_keys, top_idx = torch.sort(flat, dim=-1, descending=True, stable=True)
-        top_keys = top_keys[:, :max_keypoints]
-        top_idx = top_idx[:, :max_keypoints]
+    if nms and tile_pool_exact(h, w, window, max_keypoints):
+        return select_from_key(key, window=window, max_keypoints=max_keypoints)
+    top_keys, top_idx = torch.sort(key.reshape(b, n), dim=-1, descending=True, stable=True)
+    return _keypoints_from_top(top_keys[:, :max_keypoints], top_idx[:, :max_keypoints], w)
+
+
+def tile_pool_exact(h: int, w: int, window: int, max_keypoints: int) -> bool:
+    """Whether the tile-pooled top-k is exact on an (h, w) post-NMS key plane.
+
+    Needs tiles of at least 2 px, an unshifted raster index in the key
+    (``h·w < 2^20``) and at least ``max_keypoints`` tiles.
+    """
+    n_tiles = -(-h // window) * (-(-w // window))
+    return window >= 2 and h * w < (1 << _IDX_BITS) and n_tiles >= max_keypoints
+
+
+def select_from_key(key: torch.Tensor, *, window: int, max_keypoints: int) -> KeypointSet:
+    """Top-k keypoints from a (B, H, W) int64 post-NMS packed-key plane.
+
+    ``key`` is ``_packed_key(score, keep)`` with NMS and the border rule
+    already applied (kernel 5 emits exactly this).  The caller ensures
+    :func:`tile_pool_exact`; positions come back from the key's raster index.
+    """
+    n = key.shape[-2] * key.shape[-1]
+    pooled = _tile_max(key, window)
+    top_keys = torch.sort(pooled, dim=-1, descending=True, stable=True).values[:, :max_keypoints]
+    top_idx = n - 1 - (top_keys & ((1 << _IDX_BITS) - 1))
+    return _keypoints_from_top(top_keys, top_idx, key.shape[-1])
+
+
+def _keypoints_from_top(top_keys: torch.Tensor, top_idx: torch.Tensor, w: int) -> KeypointSet:
+    """(B, K) sorted keys and their raster indices → KeypointSet (zero where invalid)."""
     valid = top_keys > 0
     y = (top_idx // w).to(torch.float32)
     x = (top_idx % w).to(torch.float32)

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``tpuslam_torch/csrc/*.cu``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded through ``ctypes``.  The build happens at
-first use, into ``build/tpuslam_torch/`` at the repository root, under a
-file name keyed on a hash of the sources and flags — a checkout builds
+Each source compiles with its own ``nvcc`` for ``sm_90a``, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded through ``ctypes``.  The build happens at first use,
+into ``build/tpuslam_torch/`` at the repository root, under a file name
+keyed on a hash of the sources, headers and flags — a checkout builds
 everything it needs on its own, and a stale library is never loaded.
 Nothing here runs at import time: a CPU-only machine imports every module
 and never builds.
@@ -21,10 +22,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuslam_torch"
-SOURCES = ("frontend.cu", "brief.cu", "pose.cu")
+SOURCES = ("frontend.cu", "nms.cu", "brief.cu", "pose.cu")
+HEADERS = ("fast.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers, shared memory and spills, kept in .log
 )
 
@@ -33,6 +35,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: argument types (every function returns cudaGetLastError())
     "tpuslam_frontend": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "tpuslam_frontend_nms": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "tpuslam_extract_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "tpuslam_own_bin_dots": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tpuslam_msac_scores": (_P, _P, _P, _I, _I, _I, _P),
@@ -74,11 +77,22 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; return their joined output, raise on any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def build_library() -> KernelLibrary:
@@ -88,16 +102,18 @@ def build_library() -> KernelLibrary:
     seconds = 0.0
     if not target.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        stem = f"{target.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{stem}.{Path(s).stem}.o" for s in SOURCES]
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                        for s, o in zip(SOURCES, objs)])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]])
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
-        log_path.write_text(proc.stdout + proc.stderr)
+        for o in objs:
+            o.unlink()
+        log_path.write_text(log)
         os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
     log = log_path.read_text() if log_path.is_file() else ""
     return KernelLibrary(target, seconds, log)

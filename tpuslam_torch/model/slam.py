@@ -3,7 +3,8 @@
 Port of ``tpuslam/model/slam.py`` (``VoState``, ``ChunkResult``,
 ``initial_state``, ``_two_view_stage``, ``_process_chunk``,
 ``process_sequence``, ``run``).  One chunk of B frames runs, in order:
-undistort gather; detector (kernels 1-3); matching of consecutive pairs;
+undistort gather; detector (kernels 1-3, or 5, 2 and 3, on each pyramid
+level); matching of consecutive pairs;
 two-view RANSAC (kernel 4); triangulation; depth-ratio scale propagation;
 relative transforms chained into global poses.  The carry between chunks
 holds the last frame's features, its global pose and its keypoint depths.
@@ -104,7 +105,12 @@ def _scatter_max(idx: torch.Tensor, val: torch.Tensor, size: int) -> torch.Tenso
 
 
 class SlamPipeline:
-    """Batched monocular visual odometry (``tracking="vo"``) on ``device``."""
+    """Batched monocular visual odometry (``tracking="vo"``) on ``device``.
+
+    ``nms_fused`` is passed to the detector: kernel 5 (blur + FAST + NMS in
+    one pass) on every level whose shape allows it, instead of kernel 1 and
+    the separate NMS.  The keypoints are the same either way.
+    """
 
     def __init__(
         self,
@@ -114,6 +120,7 @@ class SlamPipeline:
         device: torch.device | str = "cpu",
         draw_fn: DrawFn | None = None,
         with_features: bool = False,
+        nms_fused: bool = False,
     ):
         if tracking != "vo":
             raise NotImplementedError(f"tracking={tracking!r} is not ported yet (only 'vo')")
@@ -123,14 +130,14 @@ class SlamPipeline:
         self.config = config
         self.device = torch.device(device)
         self.draw_fn = draw_fn
-        self.detector = FeatureDetector(config.detector, device=self.device)
+        self.detector = FeatureDetector(config.detector, device=self.device, nms_fused=nms_fused)
         self.K = torch.as_tensor(camera.K, dtype=torch.float32).to(self.device)
         self.undistort_idx, self.undistort_valid = camera.device_undistort_map(self.device)
         self._generator = torch.Generator(device=self.device)
 
     # --- state ----------------------------------------------------------------
     def initial_state(self) -> VoState:
-        k = self.config.detector.max_keypoints
+        k = self.config.detector.max_keypoints  # the pyramid's level capacities sum to it
         d = self.config.detector.descriptor_bytes
         dev = self.device
         empty = KeypointSet(

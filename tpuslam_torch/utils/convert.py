@@ -10,6 +10,9 @@ port's tensors, with the port's dtypes: indices become int64.
 Detector keys: ``p1``, ``p2``, ``pair_valid``, ``slot_to_pair``,
 ``slot_used``, ``blur_kernel``, ``bin_weights_3d``, ``moment_weights``.
 Pipeline keys: those, plus ``K``, ``undistort_idx`` and ``undistort_valid``.
+The image pyramid (``NumLevels > 1``, ``configs/multiscale``) adds no
+arrays: its resize weights are a function of the level shapes alone, so
+the same keys carry a multi-level detector across unchanged.
 """
 
 from __future__ import annotations
