@@ -8,7 +8,10 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
 3. kernels — each of the five kernels against its plain PyTorch twin on the
    card, on inputs made from the KITTI fixtures: kernels 1-4 at the main
    path's shapes (1-3 exact, 4 to rtol 1e-5), kernel 5 exact at the
-   pyramid's four level shapes; median times of both (CUDA events);
+   pyramid's four level shapes; median device times of both (CUDA events,
+   the card held back while the host queues the call), each kernel's bound
+   (``*_work`` beside its wrapper, ``tpuslam_torch/kernels/bounds.py``) and,
+   for kernel 3, cuBLAS's int8 product over all bins as a yardstick;
 4. frontend — ``FeatureDetector`` on 2 frames on the card and on the CPU,
    with ``configs/`` and with ``configs/multiscale`` (fused NMS): keypoints
    and descriptors identical;
@@ -42,6 +45,7 @@ REPO = Path(__file__).resolve().parent
 BATCH = 16
 N_FRAMES = 96
 RTOL_MSAC = 1e-5  # kernel 4 sums its 1024 matches in another order than the twin
+SLEEP_CYCLES = 2_000_000  # ~1 ms of card time, longer than the host takes to queue one call
 
 # Kernel wrapper name → (its CUDA source, the Pallas kernel it replaces).
 KERNELS = {
@@ -50,6 +54,15 @@ KERNELS = {
     "extract_brief_patches": ("tpuslam_torch/csrc/brief.cu", "tpuslam/kernels/brief_pallas.py:62"),
     "brief_own_bin_dots": ("tpuslam_torch/csrc/brief.cu", "tpuslam/kernels/brief_pallas.py:159"),
     "msac_scores": ("tpuslam_torch/csrc/pose.cu", "tpuslam/kernels/pose_pallas.py:54"),
+}
+# Why library_ms is null: no single PyTorch call computes the kernel's function.
+NO_LIBRARY = {
+    "fused_frontend_batch": "no single PyTorch call computes a blur with FAST corners and SAD scores",
+    "fused_frontend_nms_batch": "no single PyTorch call computes blur, FAST and a windowed-NMS key plane",
+    "extract_brief_patches": "no single PyTorch call gathers zero-padded patches around float keypoints",
+    "brief_own_bin_dots": "no single PyTorch call dots each row with its own bin's weights; "
+                          "library_ms_all_bins times torch._int_mm over all bins",
+    "msac_scores": "no single PyTorch call computes truncated-Sampson MSAC scores",
 }
 
 
@@ -65,14 +78,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median milliseconds of ``fn()`` on the card (CUDA events, after a warm-up)."""
+def time_ms(fn, reps: int = 20, hold: bool = True) -> float:
+    """Median device milliseconds of ``fn()`` (CUDA events, after a warm-up).
+
+    With ``hold`` the card sleeps before each start event while the host
+    queues ``fn``'s work, so the time is the card's, not the host's
+    dispatch; without it, a host gap between ``fn``'s launches adds to it.
+    """
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -92,8 +112,8 @@ def load_frames(n_frames: int) -> np.ndarray:
     return np.stack([base[i] for i in idx])
 
 
-def check_record(name, got, want, ms, plain_ms, exact) -> dict:
-    """Hold a kernel's outputs against its twin's; its JSON record."""
+def check_record(name, got, want, ms, plain_ms, exact, work) -> dict:
+    """Hold a kernel's outputs against its twin's; its JSON record with its bound."""
     if exact:
         for g, w in zip(got, want):
             if not torch.equal(g, w):
@@ -108,11 +128,33 @@ def check_record(name, got, want, ms, plain_ms, exact) -> dict:
             )
         err = float((g - w).abs().max())
     src, replaces = KERNELS[name]
+    bound_us = work.bound_us()
     rec = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_us / 1e3, "bound_us": bound_us, "bound_by": work.bound_by(),
+           "bound_share": bound_us / (ms * 1e3), "bytes": work.bytes, "ops": work.ops,
+           "library_ms": None, "library_note": NO_LIBRARY[name]}
     log(f"[kernels] {name}: {tuple(got[0].shape)} max_abs_err={err} "
-        f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+        f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_us:.2f} us "
+        f"({work.bound_by()}), {100 * rec['bound_share']:.1f}% of bound")
     return rec
+
+
+def int_mm_all_bins(patches, bins, weights, got) -> float:
+    """cuBLAS's int8 product of all patches by all bins' weights (16x kernel 3's
+    multiply-accumulates): its time, after checking it agrees with kernel 3
+    at each keypoint's own bin.  A yardstick only: the port never calls it."""
+    b, k, s2p = patches.shape
+    n_bins, p, _ = weights.t.shape
+    a = patches.reshape(b * k, s2p)
+    w_all = weights.t.reshape(n_bins * p, s2p).t()  # (S2p, bins·P), column-major
+    dots = torch._int_mm(a, w_all)
+    own = dots.reshape(b, k, n_bins, p).gather(
+        2, bins.clamp(0, n_bins - 1).to(torch.int64)[..., None, None].expand(b, k, 1, p))[:, :, 0]
+    in_range = (bins >= 0) & (bins < n_bins)
+    if not torch.equal(own[in_range], got[in_range]):
+        raise AssertionError("brief_own_bin_dots disagrees with torch._int_mm at the own bins")
+    return time_ms(lambda: torch._int_mm(a, w_all))
 
 
 def phase_kernels(pipeline, frames: torch.Tensor) -> list[dict]:
@@ -132,8 +174,9 @@ def phase_kernels(pipeline, frames: torch.Tensor) -> list[dict]:
     und = undistort_batch(frames, pipeline.undistort_idx, pipeline.undistort_valid)
     records = []
 
-    def record(name, got, want, ms, plain_ms, exact):
-        records.append(check_record(name, got, want, ms, plain_ms, exact))
+    def record(name, got, want, ms, plain_ms, exact, work):
+        records.append(check_record(name, got, want, ms, plain_ms, exact, work))
+        return records[-1]
 
     # Kernel 1: blur + FAST on (16, 512, 1392) u8.
     args = dict(threshold=c.intensity_threshold, contiguous=c.contiguous_pixels_threshold, taps=det.blur_kernel)
@@ -141,7 +184,7 @@ def phase_kernels(pipeline, frames: torch.Tensor) -> list[dict]:
     want = kf.fused_frontend_reference(und, **args)
     ms = time_ms(lambda: kf.fused_frontend_batch(und, **args))
     plain = time_ms(lambda: kf.fused_frontend_reference(und, **args))
-    record("fused_frontend_batch", got, want, ms, plain, exact=True)
+    record("fused_frontend_batch", got, want, ms, plain, exact=True, work=kf.frontend_work(*und.shape))
     blur, corner, score = got
     kps = select_keypoints(corner, score, nms=c.non_max_suppression,
                            window=c.suppression_window_size, max_keypoints=c.max_keypoints)
@@ -153,18 +196,24 @@ def phase_kernels(pipeline, frames: torch.Tensor) -> list[dict]:
     want = kb.extract_brief_patches_reference(blur, kps.xy, c.patch_size)
     ms = time_ms(lambda: kb.extract_brief_patches(blur, kps.xy, c.patch_size))
     plain = time_ms(lambda: kb.extract_brief_patches_reference(blur, kps.xy, c.patch_size))
-    record("extract_brief_patches", (got,), (want,), ms, plain, exact=True)
+    record("extract_brief_patches", (got,), (want,), ms, plain, exact=True,
+           work=kb.extract_patches_work(*blur.shape, kps.xy.shape[1], c.patch_size))
     patches = got
 
     # Kernel 3: own-bin dots (16, 1024, 256) i32.
     angles = orientations_from_patches(patches, det.moment_weights, kps, c.patch_size, blur.shape[-2:])
     bins = quantize_angles(angles, c.brief_quantized_bins)
-    W = det.bin_weights_3d
+    W, W3 = det.bin_weights, det.bin_weights_3d  # packed at detector init; the twin's view
     got = kb.brief_own_bin_dots(patches, bins, W)
-    want = kb.brief_own_bin_dots_reference(patches, bins, W)
+    want = kb.brief_own_bin_dots_reference(patches, bins, W3)
     ms = time_ms(lambda: kb.brief_own_bin_dots(patches, bins, W))
-    plain = time_ms(lambda: kb.brief_own_bin_dots_reference(patches, bins, W))
-    record("brief_own_bin_dots", (got,), (want,), ms, plain, exact=True)
+    plain = time_ms(lambda: kb.brief_own_bin_dots_reference(patches, bins, W3))
+    rec = record("brief_own_bin_dots", (got,), (want,), ms, plain, exact=True,
+                 work=kb.own_bin_dots_work(bins, W))
+    rec["library_ms_all_bins"] = int_mm_all_bins(patches, bins, W, got)
+    rec["library_all_bins_note"] = ("torch._int_mm (cuBLAS int8) of the (B*K, S2p) patches by all "
+                                    "bins' (S2p, bins*P) weights: 16x the kernel's multiply-accumulates")
+    log(f"[kernels] brief_own_bin_dots: torch._int_mm over all bins {rec['library_ms_all_bins']:.4f} ms")
 
     # Kernel 4: MSAC scores of 1024 hypotheses x 1024 matches per pair, 16 pairs.
     kps2, desc = det.compute_from_blurred(blur, kps)
@@ -193,7 +242,8 @@ def phase_kernels(pipeline, frames: torch.Tensor) -> list[dict]:
     want = kp.msac_scores_reference(E, P)
     ms = time_ms(lambda: kp.msac_scores(E, P))
     plain = time_ms(lambda: kp.msac_scores_reference(E, P))
-    record("msac_scores", (got,), (want,), ms, plain, exact=False)
+    record("msac_scores", (got,), (want,), ms, plain, exact=False,
+           work=kp.msac_work(BATCH, H, P.shape[-1] // 5))
     return records
 
 
@@ -216,13 +266,19 @@ def phase_kernel5(pipeline, frames: torch.Tensor) -> dict:
         want = kf.fused_frontend_nms_reference(img, **args)
         ms = time_ms(lambda: kf.fused_frontend_nms_batch(img, **args))
         plain = time_ms(lambda: kf.fused_frontend_nms_reference(img, **args))
-        shapes.append(check_record("fused_frontend_nms_batch", got, want, ms, plain, exact=True))
+        shapes.append(check_record("fused_frontend_nms_batch", got, want, ms, plain, exact=True,
+                                   work=kf.frontend_nms_work(*img.shape)))
         if int((got[1] > 0).sum()) < BATCH * 100:
             raise AssertionError(f"kernel 5: too few survivors at {tuple(img.shape)}")
     rec = dict(shapes[0])
     rec["ms"] = sum(r["ms"] for r in shapes)  # one 16-frame chunk: the four level shapes
     rec["plain_ms"] = sum(r["plain_ms"] for r in shapes)
-    rec["per_level"] = [{"shape": [BATCH, h, w], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+    for key in ("bound_us", "bytes", "ops"):
+        rec[key] = sum(r[key] for r in shapes)
+    rec["bound_ms"] = rec["bound_us"] / 1e3
+    rec["bound_share"] = rec["bound_us"] / (rec["ms"] * 1e3)
+    rec["per_level"] = [{"shape": [BATCH, h, w], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                         "bound_us": r["bound_us"]}
                         for (_, h, w), r in zip(levels, shapes)]
     return rec
 
@@ -369,7 +425,14 @@ def main() -> int:
         on_pyramid = r["name"] == "fused_frontend_nms_batch"
         r["path"] = "pyramid (configs/multiscale, nms_fused)" if on_pyramid else "main (configs/)"
         r["launches"] = (pyr_counts[True] if on_pyramid else main_counts)[r["name"]]
+        r["launches_per_chunk"] = r["launches"] / n_chunks
+    # the main path's kernel time per chunk, from the kernels phase, against its timed chunk
+    chunk_ms = 1e3 * N_FRAMES / fps / n_chunks
+    kernel_ms = sum(r["ms"] * r["launches_per_chunk"] for r in records if r["path"].startswith("main"))
+    log(f"[main] kernels {kernel_ms:.4f} ms of a {chunk_ms:.2f} ms chunk "
+        f"({100 * kernel_ms / chunk_ms:.2f}%)")
     log(json.dumps({"kernels": records, "vo_fps": fps, "vo_frames": N_FRAMES, "batch": BATCH,
+                    "main_chunk_ms": chunk_ms, "main_kernel_ms_per_chunk": kernel_ms,
                     "pyramid_fps_nms_fused": pyr_fps[True], "pyramid_fps_kernel1": pyr_fps[False]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -102,7 +102,7 @@ def test_kernel3_twin_bit_exact_with_pallas(setup):
         j_own_bin_dots(jnp.asarray(patches), jnp.asarray(bins), jnp.asarray(setup["W3"]), interpret=True)
     )
     got = brief_own_bin_dots(
-        torch.from_numpy(patches), torch.from_numpy(bins), torch.from_numpy(setup["W3"])
+        torch.from_numpy(patches), torch.from_numpy(bins), pack_bin_weights(torch.from_numpy(setup["W3"]))
     )
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
@@ -117,12 +117,37 @@ def test_kernel3_out_of_range_bin_gives_zero(setup):
 
 
 def test_packed_weights_layout(setup):
-    w4 = pack_bin_weights(torch.from_numpy(setup["W3"]))
-    as_bytes = w4.view(torch.int8).reshape(BINS, -1, PAIRS, 4)
-    # byte j of word (b, q, p) is W[b, 4q + j, p]
-    np.testing.assert_array_equal(
-        as_bytes.permute(0, 1, 3, 2).reshape(BINS, -1, PAIRS).numpy(), setup["W3"]
-    )
+    """Kernel 3's (bins, P, S2p) layout: byte s of pair p's row of bin b is W[b, s, p]."""
+    W3 = setup["W3"]
+    packed = pack_bin_weights(torch.from_numpy(W3))
+    t = packed.t
+    assert t.shape == (BINS, PAIRS, W3.shape[1]) and t.dtype == torch.int8 and t.is_contiguous()
+    flat = t.numpy().reshape(-1)  # the bytes as the kernel reads them
+    s2p = W3.shape[1]
+    rng = np.random.default_rng(7)
+    for b, p, s in zip(rng.integers(0, BINS, 64), rng.integers(0, PAIRS, 64), rng.integers(0, s2p, 64)):
+        assert flat[(b * PAIRS + p) * s2p + s] == W3[b, s, p]
+    # the 4 bytes an mma fragment register holds: k = 4t .. 4t+3 of one pair, k ascending
+    word = t[3, 5, 8:12].contiguous().view(torch.int32).item()
+    assert [np.int8((word >> (8 * j)) & 0xFF) for j in range(4)] == [W3[3, s, 5] for s in range(8, 12)]
+    np.testing.assert_array_equal(packed.as_3d().numpy(), W3)
+
+
+def test_detector_packs_weights_once_and_wrapper_checks_layout(data_dir):
+    from tpuslam_torch.config.schema import DetectorConfig
+    from tpuslam_torch.frontend.detector import FeatureDetector
+
+    cfg = DetectorConfig.from_yaml(data_dir.parent.parent / "configs" / "feature_detector.yml")
+    det = FeatureDetector(cfg, device="cpu")
+    want = det.bin_weights_3d.permute(0, 2, 1)
+    assert det.bin_weights.t.is_contiguous() and torch.equal(det.bin_weights.t, want)
+    assert det.bin_weights_3d.data_ptr() == det.bin_weights.t.data_ptr()  # a view, not a copy
+    patches = torch.zeros((1, 2, det.bin_weights.t.shape[-1]), dtype=torch.int8)
+    bins = torch.zeros((1, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="PackedBinWeights"):
+        brief_own_bin_dots(patches, bins, det.bin_weights_3d)
+    with pytest.raises(ValueError, match="contiguous"):
+        brief_own_bin_dots(patches, bins, det.bin_weights._replace(t=det.bin_weights_3d))
 
 
 def test_descriptors_bit_exact_with_reference_cpu_path(setup):
@@ -151,7 +176,7 @@ def test_descriptors_bit_exact_with_reference_cpu_path(setup):
     np.testing.assert_array_equal(
         bin_idx.numpy(), np.asarray(jb.quantize_angles(j_angles, BINS))
     )
-    own = brief_own_bin_dots(patches, bin_idx, torch.from_numpy(setup["W3"]))
+    own = brief_own_bin_dots(patches, bin_idx, pack_bin_weights(torch.from_numpy(setup["W3"])))
     rotated = tb.bin_rotated_offsets(tpat.p1, tpat.p2, BINS)
     t_desc = tb.brief_bits_from_dots(own, bin_idx, tk, tpat, rotated, PAIRS, PATCH, blur.shape[-2:])
     np.testing.assert_array_equal(t_desc.numpy(), np.asarray(j_desc))

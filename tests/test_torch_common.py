@@ -184,7 +184,7 @@ def test_converted_arrays_match_port_generated(data_dir):
     jcfg = JSlamConfig.from_yaml_dir(cfg_dir, batch_size=4)
     tcfg = TSlamConfig.from_yaml_dir(cfg_dir, batch_size=4)
     jp = JPipeline(jcam.Camera.from_yaml(cfg_dir / "camera.yml"), jcfg)
-    tp = TPipeline(tcam.Camera.from_yaml(cfg_dir / "camera.yml"), tcfg)
+    tp = TPipeline(tcam.Camera.from_yaml(cfg_dir / "camera.yml"), tcfg, device="cpu")
     jd = jp.detector
     det_np = {f: np.asarray(getattr(jd.pattern, f)) for f in jd.pattern._fields}
     det_np.update(
@@ -211,7 +211,7 @@ def test_converted_arrays_match_port_generated(data_dir):
     assert torch.equal(conv["K"], tp.K)
     assert torch.equal(conv["undistort_idx"], tp.undistort_idx)
     assert torch.equal(conv["undistort_valid"], tp.undistort_valid)
-    assert torch.equal(TDetector(tcfg.detector, arrays=conv).bin_weights_3d, td.bin_weights_3d)
+    assert torch.equal(TDetector(tcfg.detector, device="cpu", arrays=conv).bin_weights_3d, td.bin_weights_3d)
 
     # The per-bin rotated pattern offsets: the port's host table equals what
     # the reference computes per keypoint on device (jnp.cos/sin of the bin angle).

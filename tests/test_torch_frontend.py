@@ -124,6 +124,18 @@ def test_kernel1_wrapper_on_cpu_is_the_twin(crop, taps):
         assert torch.equal(u, v)
 
 
+@pytest.mark.parametrize("threshold,contiguous", [(300, 9), (20, 0)])
+def test_kernel_limits_bind_only_on_the_card(crop, taps, threshold, contiguous):
+    """A threshold or run length outside the kernels' u8/16-pixel limits still runs the CPU twins."""
+    x = torch.from_numpy(np.ascontiguousarray(crop[:64, :96]))[None]
+    args = dict(threshold=threshold, contiguous=contiguous, taps=taps)
+    for u, v in zip(fused_frontend_batch(x, **args), fused_frontend_reference(x, **args)):
+        assert torch.equal(u, v)
+    for u, v in zip(fused_frontend_nms_batch(x, window=5, **args),
+                    fused_frontend_nms_reference(x, window=5, **args)):
+        assert torch.equal(u, v)
+
+
 @pytest.mark.parametrize("contiguous", [9, 12])
 def test_fast_matches_reference_stencil(crop, contiguous):
     """Corners equal the reference's mask_run formulation; score equal at corners."""
@@ -163,7 +175,7 @@ def detector_pair(data_dir):
     cfg = data_dir.parent.parent / "configs" / "feature_detector.yml"
     jcfg = dataclasses.replace(JDetectorConfig.from_yaml(cfg), max_keypoints=512)
     tcfg = dataclasses.replace(TDetectorConfig.from_yaml(cfg), max_keypoints=512)
-    return JDetector(jcfg), TDetector(tcfg)
+    return JDetector(jcfg), TDetector(tcfg, device="cpu")
 
 
 def test_detector_batch_matches_reference(kitti_frames, detector_pair):
@@ -184,4 +196,4 @@ def test_detector_batch_matches_reference(kitti_frames, detector_pair):
 def test_detector_rejects_unported_options(data_dir):
     cfg = TDetectorConfig()
     with pytest.raises(NotImplementedError, match="BriefQuantizedBins"):
-        TDetector(dataclasses.replace(cfg, brief_quantized_bins=0))
+        TDetector(dataclasses.replace(cfg, brief_quantized_bins=0), device="cpu")

@@ -6,7 +6,8 @@ file needs neither JAX nor OpenCV, so on a GPU machine without them it runs
 without the suite's conftest:
 ``python -m pytest tests/test_torch_kernels_cuda.py --noconftest -p no:cacheprovider``.
 Kernels 1-3 and 5 must match exactly; kernel 4 to rtol 1e-5, because it
-sums the matches in another order than the twin.
+sums the matches in another order than the twin.  Kernels 1 and 5 also meet
+every one of the 65,536 bright and dark FAST circle patterns.
 """
 
 from pathlib import Path
@@ -81,16 +82,95 @@ def test_kernel2_patches_exact(frames, dev):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("bins", [16, 64])
-def test_kernel3_own_bin_dots_exact(dev, bins):
-    rng = np.random.default_rng(bins)
-    patches = torch.from_numpy(rng.integers(-128, 128, (2, 300, 2304), dtype=np.int8)).to(dev)
-    W = torch.from_numpy(rng.integers(-1, 2, (bins, 2304, 256), dtype=np.int8)).to(dev)
-    idx = torch.from_numpy(rng.integers(-1, bins + 1, (2, 300))).to(dev)
+def _kernel3_case(case, rng):
+    """(patches, bin indices, bins) of one edge case; S2p 2304 and P 256 as on the main path."""
+    b, k, bins = 2, 300, 16
+    if case == "k1":
+        k = 1
+    elif case == "k333":  # not a multiple of the 64-keypoint slab
+        k = 333
+    elif case == "bins64":
+        bins = 64
+    patches = rng.integers(-128, 128, (b, k, 2304), dtype=np.int8)
+    idx = rng.integers(0, bins, (b, k))
+    if case == "one_bin":  # every keypoint in one bin: 5 slabs of it, the rest empty
+        idx[:] = 7
+    elif case == "empty_bins":  # bins 0-3 and 9-15 hold nobody
+        idx = rng.integers(4, 9, (b, k))
+    elif case == "out_of_range":
+        idx = rng.integers(-1, bins + 1, (b, k))
+        idx[0, :5] = -1
+        idx[1, :5] = bins
+    elif case == "bins64":
+        idx = rng.integers(-1, bins + 1, (b, k))
+    return patches, idx, bins
+
+
+@pytest.mark.parametrize("case", ["random", "one_bin", "k1", "k333", "empty_bins", "out_of_range", "bins64"])
+def test_kernel3_own_bin_dots_exact(dev, case):
+    rng = np.random.default_rng(sum(map(ord, case)))
+    patches, idx, bins = _kernel3_case(case, rng)
+    patches = torch.from_numpy(patches).to(dev)
+    idx = torch.from_numpy(idx).to(dev)
+    W3 = torch.from_numpy(rng.integers(-1, 2, (bins, 2304, 256), dtype=np.int8)).to(dev)
+    W = kb.pack_bin_weights(W3)
+    before = kb.brief_own_bin_dots.launches
     got = kb.brief_own_bin_dots(patches, idx, W)
-    want = kb.brief_own_bin_dots_reference(patches, idx, W)
+    want = kb.brief_own_bin_dots_reference(patches, idx, W3)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert kb.brief_own_bin_dots.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    out_of_range = (idx < 0) | (idx >= bins)
+    assert not got[out_of_range].any()
+
+
+def _ring_patterns(dark: bool) -> torch.Tensor:
+    """(2048, 2048) u8: cell (cy, cx) of 8 x 8 carries pattern cy * 256 + cx on the
+    circle of its pixel (4, 4) — bit i set puts circle pixel i at 200 (or 0
+    for ``dark``), the rest of the image is 100: all 65,536 patterns once."""
+    from tpuslam_torch.frontend.fast import CIRCLE_OFFSETS
+
+    img = np.full((2048, 2048), 100, np.uint8)
+    pattern = np.arange(65536).reshape(256, 256)
+    for i, (dx, dy) in enumerate(CIRCLE_OFFSETS):
+        on = (pattern >> i) & 1 == 1
+        img[4 + dy :: 8, 4 + dx :: 8][on] = 0 if dark else 200
+    return torch.from_numpy(img)
+
+
+def _corner_by_counters(contiguous: int) -> np.ndarray:
+    """(65536,) whether a centre whose circle mask is the index is a FAST corner."""
+    masks = np.arange(65536)
+    bits = [(masks >> i) & 1 == 1 for i in range(16)]
+    run = np.zeros(65536, int)
+    seg = np.zeros(65536, bool)
+    for i in range(min(32, 15 + contiguous)):
+        run = np.where(bits[i % 16], run + 1, 0)
+        seg |= run >= contiguous
+    n4 = sum(bits[i].astype(int) for i in (0, 4, 8, 12))
+    return (bits[0] | bits[8]) & (n4 >= 3) & seg
+
+
+@pytest.mark.parametrize("contiguous", [9, 12, 16])
+def test_fast_ring_exhaustive(dev, contiguous):
+    """Kernels 1 and 5 against their twins on every bright and every dark circle pattern."""
+    taps = torch.from_numpy(gaussian_kernel().astype(np.float32))
+    images = torch.stack([_ring_patterns(False), _ring_patterns(True)]).to(dev)
+    args = dict(threshold=20, contiguous=contiguous, taps=taps)
+    got = kf.fused_frontend_batch(images, **args)
+    want = kf.fused_frontend_reference(images, **args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    expected = torch.from_numpy(_corner_by_counters(contiguous)).reshape(256, 256)
+    centres = got[1][:, 4::8, 4::8].cpu()
+    assert torch.equal(centres[0], expected) and torch.equal(centres[1], expected)
+    for window in (5, 12):
+        got5 = kf.fused_frontend_nms_batch(images, window=window, **args)
+        want5 = kf.fused_frontend_nms_reference(images, window=window, **args)
+        torch.cuda.synchronize()
+        for g, w in zip(got5, want5):
+            assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_kernel4_msac_close(dev):
@@ -113,3 +193,11 @@ def test_wrappers_reject_bad_input(dev):
                                  torch.zeros((1, 4, 2), dtype=torch.float64, device=dev), 31)
     with pytest.raises(ValueError):
         kp.msac_scores(torch.zeros((1, 4, 8), device=dev), torch.zeros((1, 9, 10), device=dev))
+    W3 = torch.zeros((2, 2304, 256), dtype=torch.int8, device=dev)
+    patches = torch.zeros((1, 4, 2304), dtype=torch.int8, device=dev)
+    bins = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # weights not in kernel 3's packed layout
+        kb.brief_own_bin_dots(patches, bins, W3)
+    with pytest.raises(ValueError):  # contiguous out of the kernels' range
+        kf.fused_frontend_batch(torch.zeros((1, 8, 8), dtype=torch.uint8, device=dev), threshold=20,
+                                contiguous=17, taps=torch.zeros((5, 5)))

@@ -32,7 +32,8 @@ def pairs(kitti_frames, data_dir):
     """Matched pixel points of fixture pairs (0,1), (3,4), (7,8) from the port's frontend."""
     cfg_dir = data_dir.parent.parent / "configs"
     det = FeatureDetector(
-        dataclasses.replace(DetectorConfig.from_yaml(cfg_dir / "feature_detector.yml"), max_keypoints=K_CAP)
+        dataclasses.replace(DetectorConfig.from_yaml(cfg_dir / "feature_detector.yml"), max_keypoints=K_CAP),
+        device="cpu",
     )
     idx = [(0, 1), (3, 4), (7, 8)]
     frames = torch.from_numpy(np.stack([kitti_frames[i] for p in idx for i in p]))

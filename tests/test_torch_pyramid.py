@@ -131,7 +131,7 @@ def test_pyramid_detector_matches_reference(monkeypatch, detector_pair, jax_pyra
     and its descriptor stays the same.
     """
     monkeypatch.setattr(tdetector, "resize_batch_u8", _jax_resize)
-    det = tdetector.FeatureDetector(detector_pair[1], nms_fused=nms_fused)
+    det = tdetector.FeatureDetector(detector_pair[1], device="cpu", nms_fused=nms_fused)
     levels = det._feasible_levels(*two_frames.shape[-2:])
     assert [(h, w) for _, h, w in levels[1:]] == LEVEL_SHAPES
     assert all(det._fused_nms_ok(h, w, 68) == nms_fused for _, h, w in levels)
@@ -170,7 +170,7 @@ def pipeline_runs(cfg_dir, data_dir):
     tp = tslam.SlamPipeline(
         TCamera.from_yaml(cfg_dir / "camera.yml"),
         _small(TSlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH)),
-        draw_fn=_jax_draws, nms_fused=True,
+        device="cpu", draw_fn=_jax_draws, nms_fused=True,
     )
     own = tp.run(iter(batches), seed=0)
     with pytest.MonkeyPatch.context() as mp:

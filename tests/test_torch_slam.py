@@ -52,6 +52,7 @@ def runs(data_dir):
     tp = tslam.SlamPipeline(
         TCamera.from_yaml(cfg_dir / "camera.yml"),
         _small(TSlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH)),
+        device="cpu",
         draw_fn=_jax_draws,
     )
     got = tp.run(iter(batches), seed=0)
@@ -111,9 +112,9 @@ def test_unported_modes_raise(data_dir):
     cam = TCamera.from_yaml(cfg_dir / "camera.yml")
     cfg = TSlamConfig.from_yaml_dir(cfg_dir)
     with pytest.raises(NotImplementedError):
-        tslam.SlamPipeline(cam, cfg, tracking="pnp")
+        tslam.SlamPipeline(cam, cfg, tracking="pnp", device="cpu")
     with pytest.raises(NotImplementedError):
-        tslam.SlamPipeline(cam, cfg, with_features=True)
+        tslam.SlamPipeline(cam, cfg, with_features=True, device="cpu")
 
 
 def test_cli_writes_kitti_trajectory(tmp_path, data_dir, capsys):
@@ -127,3 +128,32 @@ def test_cli_writes_kitti_trajectory(tmp_path, data_dir, capsys):
     assert rows.shape == (2, 12)
     np.testing.assert_array_equal(rows[0], np.eye(4)[:3].reshape(-1))
     assert '"frames": 2' in capsys.readouterr().out
+
+
+def test_entry_points_default_to_cuda(data_dir):
+    """SlamPipeline and FeatureDetector built without ``device`` run on the card, or raise."""
+    from tpuslam_torch.frontend.detector import FeatureDetector
+
+    cfg_dir = data_dir.parent.parent / "configs"
+    cam = TCamera.from_yaml(cfg_dir / "camera.yml")
+    cfg = TSlamConfig.from_yaml_dir(cfg_dir)
+    builders = (lambda: tslam.SlamPipeline(cam, cfg), lambda: FeatureDetector(cfg.detector))
+    for build in builders:
+        if torch.cuda.is_available():
+            assert build().device.type == "cuda"
+        else:  # torch's own error: no silent CPU run
+            with pytest.raises((AssertionError, RuntimeError)):
+                build()
+
+
+def test_cli_without_device_does_not_fall_back(tmp_path, data_dir, capsys):
+    args = [
+        "-c", str(data_dir.parent.parent / "configs"), "-v", str(data_dir / "images"),
+        "-o", str(tmp_path / "traj.txt"), "--batch-size", "2", "--max-frames", "2", "--stats",
+    ]
+    if torch.cuda.is_available():
+        assert cli_main(args) == 0 and '"device": "cuda' in capsys.readouterr().out
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            cli_main(args)
+        assert not (tmp_path / "traj.txt").exists()

@@ -3,9 +3,10 @@
 The VO subset of ``tools/cli.py``::
 
     python -m tpuslam_torch.cli -c configs -v tests/data/images -o traj.txt \\
-        [--batch-size 16] [--stats] [--device cuda] [--nms-fused]
+        [--batch-size 16] [--stats] [--device cpu] [--nms-fused]
 
-writes a KITTI-format trajectory (12 values per row).  ``--stats`` prints
+writes a KITTI-format trajectory (12 values per row).  It runs on the card
+unless ``--device cpu`` is given; without a card it fails.  ``--stats`` prints
 one JSON line with the frame count, wall time and pose statistics.
 ``-c configs/multiscale`` runs the 4-level image pyramid; ``--nms-fused``
 detects with kernel 5 (blur + FAST + NMS in one pass) where a level allows.
@@ -20,7 +21,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from tpuslam_torch.common.camera import Camera
 from tpuslam_torch.config.schema import SlamConfig
@@ -53,8 +53,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--max-frames", type=int, default=0,
                         help="stop after this many frames (0 = all)")
-    parser.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu",
-                        help="torch device (default: cuda when available, else cpu)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default: cuda; pass cpu to run without a card)")
     parser.add_argument("--nms-fused", action="store_true",
                         help="detect with the fused blur+FAST+NMS kernel where a level allows it")
     parser.add_argument("--stats", action="store_true", help="print run stats as JSON")

@@ -53,7 +53,7 @@ constexpr int kIdxBits = 20;
 __global__ void __launch_bounds__(kThreads)
 frontend_nms_kernel(const uint8_t* __restrict__ images, uint8_t* __restrict__ blur,
                     int64_t* __restrict__ key_out, int H, int W, int threshold,
-                    int contiguous, int window, int idx_shift, Taps taps) {
+                    tpuslam::RunShifts runs, int window, int idx_shift, Taps taps) {
   __shared__ uint8_t img[kImgH][kImgW];
   __shared__ uint32_t key[kKeyH][kKeyW];
   __shared__ uint32_t row_max[kKeyH][kTileW];
@@ -90,8 +90,7 @@ frontend_nms_kernel(const uint8_t* __restrict__ images, uint8_t* __restrict__ bl
     uint32_t k = 0;
     if (gy >= kFast && gy < H - kFast && gx >= kFast && gx < W - kFast) {
       int sad;
-      if (tpuslam::fast_corner(&img[ky + kFast][kx + kFast], kImgW, threshold, contiguous,
-                               &sad)) {
+      if (tpuslam::fast_corner(&img[ky + kFast][kx + kFast], kImgW, threshold, runs, &sad)) {
         const uint32_t idx = (uint32_t)gy * (uint32_t)W + (uint32_t)gx;
         k = ((uint32_t)sad << kIdxBits) | ((last - idx) >> idx_shift);
       }
@@ -133,12 +132,13 @@ frontend_nms_kernel(const uint8_t* __restrict__ images, uint8_t* __restrict__ bl
 extern "C" int tpuslam_frontend_nms(const void* images, void* blur, void* key, int B, int H,
                                     int W, int threshold, int contiguous, int window,
                                     int idx_shift, const float* taps_host, void* stream) {
-  if (window < 1 || window - 1 > kMaxR) return (int)cudaErrorInvalidValue;
+  if (window < 1 || window - 1 > kMaxR || contiguous < 1 || contiguous > 16)
+    return (int)cudaErrorInvalidValue;
   Taps taps;
   for (int i = 0; i < 25; ++i) taps.k[i] = taps_host[i];
   dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
   frontend_nms_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)images, (uint8_t*)blur, (int64_t*)key, H, W, threshold, contiguous,
-      window, idx_shift, taps);
+      (const uint8_t*)images, (uint8_t*)blur, (int64_t*)key, H, W, threshold,
+      tpuslam::run_shifts(contiguous), window, idx_shift, taps);
   return (int)cudaGetLastError();
 }

@@ -41,7 +41,11 @@ from tpuslam_torch.frontend.fast import (
     select_keypoints,
     tile_pool_exact,
 )
-from tpuslam_torch.kernels.brief import brief_own_bin_dots, extract_brief_patches
+from tpuslam_torch.kernels.brief import (
+    brief_own_bin_dots,
+    extract_brief_patches,
+    pack_bin_weights,
+)
 from tpuslam_torch.kernels.frontend import (
     NMS_HALO,
     fused_frontend_batch,
@@ -74,7 +78,7 @@ def detector_arrays_numpy(config: DetectorConfig) -> dict[str, np.ndarray]:
 
 
 class FeatureDetector:
-    """Batched detector holding its constant arrays on ``device``.
+    """Batched detector holding its constant arrays on ``device`` (the card by default).
 
     ``nms_fused`` asks for kernel 5 (blur + FAST + NMS in one pass) on every
     level whose shape allows it (:meth:`_fused_nms_ok`); the others, and
@@ -85,7 +89,7 @@ class FeatureDetector:
     def __init__(
         self,
         config: DetectorConfig | str | Path,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         arrays: dict[str, torch.Tensor] | None = None,
         nms_fused: bool = False,
     ):
@@ -107,7 +111,9 @@ class FeatureDetector:
         )
         # Kernels 1 and 5 read the taps on the host before each launch: keep them on the CPU.
         self.blur_kernel = arrays["blur_kernel"].to("cpu")
-        self.bin_weights_3d = arrays["bin_weights_3d"].to(self.device)
+        # Kernel 3's (bins, P, S2p) layout, built once here; the twin reads the (bins, S2p, P) view.
+        self.bin_weights = pack_bin_weights(arrays["bin_weights_3d"].to(self.device))
+        self.bin_weights_3d = self.bin_weights.as_3d()
         self.moment_weights = arrays["moment_weights"].to(self.device)
         self.rotated_offsets = bin_rotated_offsets(
             self.pattern.p1, self.pattern.p2, config.brief_quantized_bins
@@ -200,7 +206,7 @@ class FeatureDetector:
             patches, self.moment_weights, kps, c.patch_size, (h, w)
         )
         bin_idx = quantize_angles(angles, c.brief_quantized_bins)
-        own = brief_own_bin_dots(patches, bin_idx, self.bin_weights_3d)
+        own = brief_own_bin_dots(patches, bin_idx, self.bin_weights)
         desc = brief_bits_from_dots(
             own, bin_idx, kps, self.pattern, self.rotated_offsets,
             c.num_brief_pairs, c.patch_size, (h, w),

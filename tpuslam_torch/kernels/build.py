@@ -37,7 +37,7 @@ _SIGNATURES = {
     "tpuslam_frontend": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "tpuslam_frontend_nms": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "tpuslam_extract_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "tpuslam_own_bin_dots": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "tpuslam_own_bin_dots": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tpuslam_msac_scores": (_P, _P, _P, _I, _I, _I, _P),
 }
 

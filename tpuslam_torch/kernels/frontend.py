@@ -4,10 +4,11 @@ Kernel 1, fused blur + FAST + score, replaces
 ``tpuslam/kernels/frontend_pallas.py::fused_frontend_batch``.  Kernel 5,
 fused blur + FAST + windowed NMS, replaces ``fused_frontend_nms_batch`` of
 the same file.  On a CUDA tensor each wrapper launches its kernel (or
-raises); on a CPU tensor it runs its plain twin.  Kernel 1 leaves the
-reference package's border rules to its wrapper (the blur's 2-px border is
-copied from the source, corners are masked to the 3-px interior); kernel 5
-applies both itself.
+raises); on a CPU tensor it runs its plain twin.  Both kernels apply the
+reference package's border rules themselves (the blur's 2-px border is
+copied from the source, corners are masked to the 3-px interior), so a
+wrapper only checks, allocates and launches.  The kernels take a FAST
+threshold in [0, 255] and ``contiguous`` in [1, 16] (the twins take any).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from tpuslam_torch.frontend.fast import (
     idx_shift,
     local_max_nms,
 )
+from tpuslam_torch.kernels.bounds import PEAK_F32_OPS, Work
 from tpuslam_torch.kernels.build import library
 
 # Image halo kernel 5 may need beyond its output tile: (window − 1) for the
@@ -37,6 +39,19 @@ def fused_frontend_reference(
     return gaussian_blur_u8(images, taps), corner, score
 
 
+def frontend_work(b: int, h: int, w: int) -> Work:
+    """Kernel 1's bytes (1 in, 1 + 1 + 4 out a pixel) and blur float32 operations (25 mul + 25 add).
+
+    FAST's integer compares have no published peak to count against.
+    """
+    return Work(bytes=7 * b * h * w, ops=50 * b * h * w, peak=PEAK_F32_OPS)
+
+
+def frontend_nms_work(b: int, h: int, w: int) -> Work:
+    """Kernel 5's bytes (1 in, 1 + 8 out a pixel) and blur float32 operations."""
+    return Work(bytes=10 * b * h * w, ops=50 * b * h * w, peak=PEAK_F32_OPS)
+
+
 def _check(images: torch.Tensor, taps: torch.Tensor) -> None:
     if images.dtype != torch.uint8 or images.dim() != 3:
         raise ValueError(f"images must be (B, H, W) uint8, got {images.dtype} {tuple(images.shape)}")
@@ -44,6 +59,15 @@ def _check(images: torch.Tensor, taps: torch.Tensor) -> None:
         raise ValueError("images must be contiguous")
     if taps.shape != (5, 5) or taps.dtype != torch.float32:
         raise ValueError(f"taps must be (5, 5) float32, got {taps.dtype} {tuple(taps.shape)}")
+
+
+def _check_cuda(images: torch.Tensor, threshold: int, contiguous: int) -> None:
+    """The kernels' own limits: a u8 SWAR threshold and a 16-pixel ring."""
+    if images.device.type != "cuda":
+        raise ValueError(f"unsupported device {images.device}")
+    if not (0 <= threshold <= 255 and 1 <= contiguous <= 16):
+        raise ValueError(f"threshold must be in [0, 255] and contiguous in [1, 16], "
+                         f"got {threshold}, {contiguous}")
 
 
 def fused_frontend_batch(
@@ -55,8 +79,7 @@ def fused_frontend_batch(
         return fused_frontend_reference(
             images, threshold=threshold, contiguous=contiguous, taps=taps
         )
-    if images.device.type != "cuda":
-        raise ValueError(f"unsupported device {images.device}")
+    _check_cuda(images, threshold, contiguous)
     b, h, w = images.shape
     blur = torch.empty_like(images)
     corner = torch.empty(images.shape, dtype=torch.bool, device=images.device)
@@ -70,12 +93,7 @@ def fused_frontend_batch(
             torch.cuda.current_stream().cuda_stream,
         )
     fused_frontend_batch.launches += 1
-    row = torch.arange(h, device=images.device)[:, None]
-    col = torch.arange(w, device=images.device)[None, :]
-    blur_border = (row < 2) | (row >= h - 2) | (col < 2) | (col >= w - 2)
-    blur = torch.where(blur_border, images, blur)
-    in_frame = (row >= BORDER) & (row < h - BORDER) & (col >= BORDER) & (col < w - BORDER)
-    return blur, corner & in_frame, score
+    return blur, corner, score
 
 
 fused_frontend_batch.launches = 0
@@ -107,8 +125,7 @@ def fused_frontend_nms_batch(
         return fused_frontend_nms_reference(
             images, threshold=threshold, contiguous=contiguous, window=window, taps=taps
         )
-    if images.device.type != "cuda":
-        raise ValueError(f"unsupported device {images.device}")
+    _check_cuda(images, threshold, contiguous)
     b, h, w = images.shape
     blur = torch.empty_like(images)
     key = torch.empty(images.shape, dtype=torch.int64, device=images.device)

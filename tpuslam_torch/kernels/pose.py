@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from tpuslam_torch.kernels.bounds import PEAK_F32_OPS, Work
 from tpuslam_torch.kernels.build import library
 
 
@@ -88,3 +89,13 @@ def msac_scores(E_flat: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
 
 
 msac_scores.launches = 0
+
+
+def msac_work(b: int, h: int, m: int) -> Work:
+    """Bytes and float32 operations of one call: 97 per (hypothesis, match).
+
+    Five 9-term dot products (85), the denominator (7), then square,
+    divide, clamp and add (5); E and the operand read once, the scores
+    written once.
+    """
+    return Work(bytes=4 * (b * h * 9 + b * 9 * 5 * m + b * h), ops=97 * b * h * m, peak=PEAK_F32_OPS)

@@ -105,7 +105,7 @@ def _scatter_max(idx: torch.Tensor, val: torch.Tensor, size: int) -> torch.Tenso
 
 
 class SlamPipeline:
-    """Batched monocular visual odometry (``tracking="vo"``) on ``device``.
+    """Batched monocular visual odometry (``tracking="vo"``) on ``device`` (the card by default).
 
     ``nms_fused`` is passed to the detector: kernel 5 (blur + FAST + NMS in
     one pass) on every level whose shape allows it, instead of kernel 1 and
@@ -117,7 +117,7 @@ class SlamPipeline:
         camera: Camera,
         config: SlamConfig,
         tracking: str = "vo",
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         draw_fn: DrawFn | None = None,
         with_features: bool = False,
         nms_fused: bool = False,
