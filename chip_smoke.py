@@ -8,10 +8,14 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
 3. kernels — each of the five kernels against its plain PyTorch twin on the
    card, on inputs made from the KITTI fixtures: kernels 1-4 at the main
    path's shapes (1-3 exact, 4 to rtol 1e-5), kernel 5 exact at the
-   pyramid's four level shapes; median device times of both (CUDA events,
-   the card held back while the host queues the call), each kernel's bound
-   (``*_work`` beside its wrapper, ``tpuslam_torch/kernels/bounds.py``) and,
-   for kernel 3, cuBLAS's int8 product over all bins as a yardstick;
+   pyramid's four level shapes; kernels 2 and 4 also at a ragged shape each
+   (keypoints beyond every border and a second patch size; H, M off the
+   tiles with invalid matches), and kernel 4 twice for identical bits;
+   median device times of both (CUDA events, the card held back while the
+   host queues the call), each kernel's bound (``*_work`` beside its
+   wrapper, ``tpuslam_torch/kernels/bounds.py``) and, as yardsticks the
+   port never calls, cuBLAS's int8 product over all bins for kernel 3 and
+   its float32 ``torch.bmm(E, P)`` for kernel 4;
 4. frontend — ``FeatureDetector`` on 2 frames on the card and on the CPU,
    with ``configs/`` and with ``configs/multiscale`` (fused NMS): keypoints
    and descriptors identical;
@@ -62,7 +66,8 @@ NO_LIBRARY = {
     "extract_brief_patches": "no single PyTorch call gathers zero-padded patches around float keypoints",
     "brief_own_bin_dots": "no single PyTorch call dots each row with its own bin's weights; "
                           "library_ms_all_bins times torch._int_mm over all bins",
-    "msac_scores": "no single PyTorch call computes truncated-Sampson MSAC scores",
+    "msac_scores": "no single PyTorch call computes truncated-Sampson MSAC scores; "
+                   "library_ms_product times torch.bmm(E, P), its 45-term products alone",
 }
 
 
@@ -121,12 +126,7 @@ def check_record(name, got, want, ms, plain_ms, exact, work) -> dict:
                 raise AssertionError(f"{name}: kernel disagrees with its twin at {bad} elements")
         err = 0.0
     else:
-        g, w = got[0], want[0]
-        if not torch.allclose(g, w, rtol=RTOL_MSAC, atol=0.0):
-            raise AssertionError(
-                f"{name}: max rel err {float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())}"
-            )
-        err = float((g - w).abs().max())
+        err = require_msac_close(name, got[0], want[0])
     src, replaces = KERNELS[name]
     bound_us = work.bound_us()
     rec = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -157,14 +157,87 @@ def int_mm_all_bins(patches, bins, weights, got) -> float:
     return time_ms(lambda: torch._int_mm(a, w_all))
 
 
+def msac_inputs(pipeline, blur: torch.Tensor, kps) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 4's (E, P) as the main path builds them: descriptors of the 16 frames
+    matched pair by pair, 1024 eight-point hypotheses a pair, the (9, 5M) operand."""
+    from tpuslam_torch.common.geometry import normalize_points
+    from tpuslam_torch.frontend.matcher import match_descriptors
+    from tpuslam_torch.frontend.pose import _eight_point_rows, _solve_e_from_rows, draw_ranks
+    from tpuslam_torch.kernels import pose as kp
+
+    kps2, desc = pipeline.detector.compute_from_blurred(blur, kps)
+    q, t = slice(0, BATCH - 1), slice(1, BATCH)
+    m = match_descriptors(desc[q], desc[t], kps2.valid[q], kps2.valid[t], kps2.xy[q], kps2.xy[t],
+                          filter_matches=False)
+    # pair 0 against itself keeps the batch at 16 pairs, as in the pipeline
+    qi = torch.cat([m.query_idx[:1].clamp_min(0), m.query_idx.clamp_min(0)])
+    ti = torch.cat([m.query_idx[:1].clamp_min(0), m.train_idx.clamp_min(0)])
+    valid = torch.cat([m.valid[:1], m.valid])
+    xy_q = torch.cat([kps2.xy[:1], kps2.xy[:-1]])
+    pts1 = torch.gather(xy_q, 1, qi[..., None].expand(-1, -1, 2))
+    pts2 = torch.gather(kps2.xy, 1, ti[..., None].expand(-1, -1, 2))
+    K = pipeline.K
+    x1, x2 = normalize_points(K, pts1), normalize_points(K, pts2)
+    H = pipeline.config.pose.num_hypotheses
+    gen = torch.Generator(device=blur.device).manual_seed(0)
+    draws = draw_ranks(valid.sum(-1), H, 8, gen)
+    rank_to_idx = torch.argsort((~valid).to(torch.int8), dim=-1, stable=True)
+    sample = torch.gather(rank_to_idx, 1, draws.reshape(BATCH, -1))
+    rows = torch.gather(_eight_point_rows(x1, x2), 1, sample[..., None].expand(-1, -1, 9))
+    E = _solve_e_from_rows(rows.reshape(BATCH, H, 8, 9), project=False, sweeps=3).reshape(BATCH, H, 9)
+    focal = 0.5 * (K[0, 0] + K[1, 1])
+    return E, kp.build_msac_operand(x1, x2, valid, (1.0 / focal) ** 2)
+
+
+def require_msac_close(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Kernel 4 within RTOL_MSAC of its twin; the largest absolute difference."""
+    if not torch.allclose(got, want, rtol=RTOL_MSAC, atol=0.0):
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        raise AssertionError(f"{label}: max rel err {rel}")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def check_ragged(blur: torch.Tensor) -> None:
+    """Kernels 2 and 4 against their twins off the main path's shapes."""
+    from tpuslam_torch.kernels import brief as kb
+    from tpuslam_torch.kernels import pose as kp
+
+    rng = np.random.default_rng(0)
+    dev = blur.device
+    b, h, w = blur.shape
+    # kernel 2: K 333, keypoints up to 5 px outside every border; sides 48 (16-byte units) and 40 (8)
+    xy = np.stack([rng.uniform(-5, w + 5, (b, 333)), rng.uniform(-5, h + 5, (b, 333))], -1)
+    xy[:, :4] = [(0, 0), (w - 1, 0), (0, h - 1), (w - 1, h - 1)]
+    xy = torch.from_numpy(xy.astype(np.float32)).to(dev)
+    for patch_size in (31, 25):
+        got = kb.extract_brief_patches(blur, xy, patch_size)
+        want = kb.extract_brief_patches_reference(blur, xy, patch_size)
+        if not torch.equal(got, want):
+            raise AssertionError(f"extract_brief_patches (K 333, patch {patch_size}, keypoints beyond the "
+                                 f"borders): {int((got != want).sum())} bytes differ from the twin")
+    log(f"[kernels] extract_brief_patches: exact at K 333 beyond the borders, patch 31 and 25 "
+        f"(sides {kb.patch_side(31)}, {kb.patch_side(25)})")
+    # kernel 4: B 3, H 300, M 777, a tenth of the matches invalid and one pair with none
+    B, H, M = 3, 300, 777
+    x1 = torch.from_numpy(rng.uniform(-0.6, 0.6, (B, M, 2)).astype(np.float32)).to(dev)
+    x2 = x1 + torch.from_numpy(rng.normal(0, 2e-3, (B, M, 2)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random((B, M)) > 0.1).to(dev)
+    valid[2] = False
+    E = torch.from_numpy((rng.normal(size=(B, H, 9)) * 0.3).astype(np.float32)).to(dev)
+    P = kp.build_msac_operand(x1, x2, valid, 1e-6)
+    got = kp.msac_scores(E, P)
+    err = require_msac_close("msac_scores (B 3, H 300, M 777)", got, kp.msac_scores_reference(E, P))
+    if got[2].any():
+        raise AssertionError("msac_scores: a pair without valid matches must score exactly 0")
+    log(f"[kernels] msac_scores: within rtol {RTOL_MSAC} at B 3, H 300, M 777 (max_abs_err {err}), "
+        f"the all-invalid pair scores 0")
+
+
 def phase_kernels(pipeline, frames: torch.Tensor) -> list[dict]:
-    """Kernels 1-4 against their twins at the main path's shapes."""
+    """Kernels 1-4 against their twins at the main path's shapes; 2 and 4 also at ragged ones."""
     from tpuslam_torch.common.camera import undistort_batch
     from tpuslam_torch.frontend.brief import orientations_from_patches, quantize_angles
     from tpuslam_torch.frontend.fast import select_keypoints
-    from tpuslam_torch.frontend.matcher import match_descriptors
-    from tpuslam_torch.frontend.pose import _eight_point_rows, _solve_e_from_rows, draw_ranks
-    from tpuslam_torch.common.geometry import normalize_points
     from tpuslam_torch.kernels import brief as kb
     from tpuslam_torch.kernels import frontend as kf
     from tpuslam_torch.kernels import pose as kp
@@ -216,34 +289,20 @@ def phase_kernels(pipeline, frames: torch.Tensor) -> list[dict]:
     log(f"[kernels] brief_own_bin_dots: torch._int_mm over all bins {rec['library_ms_all_bins']:.4f} ms")
 
     # Kernel 4: MSAC scores of 1024 hypotheses x 1024 matches per pair, 16 pairs.
-    kps2, desc = det.compute_from_blurred(blur, kps)
-    q, t = slice(0, BATCH - 1), slice(1, BATCH)
-    m = match_descriptors(desc[q], desc[t], kps2.valid[q], kps2.valid[t], kps2.xy[q], kps2.xy[t],
-                          filter_matches=False)
-    # pair 0 against itself keeps the batch at 16 pairs, as in the pipeline
-    qi = torch.cat([m.query_idx[:1].clamp_min(0), m.query_idx.clamp_min(0)])
-    ti = torch.cat([m.query_idx[:1].clamp_min(0), m.train_idx.clamp_min(0)])
-    valid = torch.cat([m.valid[:1], m.valid])
-    xy_q = torch.cat([kps2.xy[:1], kps2.xy[:-1]])
-    pts1 = torch.gather(xy_q, 1, qi[..., None].expand(-1, -1, 2))
-    pts2 = torch.gather(kps2.xy, 1, ti[..., None].expand(-1, -1, 2))
-    K = pipeline.K
-    x1, x2 = normalize_points(K, pts1), normalize_points(K, pts2)
-    H = pipeline.config.pose.num_hypotheses
-    gen = torch.Generator(device=frames.device).manual_seed(0)
-    draws = draw_ranks(valid.sum(-1), H, 8, gen)
-    rank_to_idx = torch.argsort((~valid).to(torch.int8), dim=-1, stable=True)
-    sample = torch.gather(rank_to_idx, 1, draws.reshape(BATCH, -1))
-    rows = torch.gather(_eight_point_rows(x1, x2), 1, sample[..., None].expand(-1, -1, 9))
-    E = _solve_e_from_rows(rows.reshape(BATCH, H, 8, 9), project=False, sweeps=3).reshape(BATCH, H, 9)
-    focal = 0.5 * (K[0, 0] + K[1, 1])
-    P = kp.build_msac_operand(x1, x2, valid, (1.0 / focal) ** 2)
+    E, P = msac_inputs(pipeline, blur, kps)
     got = kp.msac_scores(E, P)
     want = kp.msac_scores_reference(E, P)
+    if not torch.equal(got, kp.msac_scores(E, P)):
+        raise AssertionError("msac_scores: two runs on the same inputs give different bits")
     ms = time_ms(lambda: kp.msac_scores(E, P))
     plain = time_ms(lambda: kp.msac_scores_reference(E, P))
-    record("msac_scores", (got,), (want,), ms, plain, exact=False,
-           work=kp.msac_work(BATCH, H, P.shape[-1] // 5))
+    rec = record("msac_scores", (got,), (want,), ms, plain, exact=False,
+                 work=kp.msac_work(*E.shape[:2], P.shape[-1] // 5))
+    rec["library_ms_product"] = time_ms(lambda: torch.bmm(E, P))
+    rec["library_product_note"] = ("torch.bmm(E, P) in full float32 (cuBLAS): the 45-term products "
+                                   "alone, written out as (B, H, 5M); the port never calls it")
+    log(f"[kernels] msac_scores: same bits twice; torch.bmm(E, P) {rec['library_ms_product']:.4f} ms")
+    check_ragged(blur)
     return records
 
 

@@ -9,25 +9,32 @@ against drift.  Each runs in a process of its own, since each has its own
 ``tpuslam_torch``: the process builds that checkout's kernels, makes the
 main path's inputs from the KITTI fixtures as ``chip_smoke.py`` does
 (16 undistorted frames, ``configs/``; kernel 5 at the four level shapes of
-``configs/multiscale``), checks kernels 1, 2, 3 and 5 bit-exact against
-that checkout's twins, and times each wrapper as the path calls it with
-``time_ms`` of the ``chip_smoke.py`` beside this script — with the card
-held back while the host queues the call (``hold``, device time) and
-without (a host gap between launches adds to it) — whichever checkout's
-code it times.  A digest of each kernel's outputs shows whether two
-checkouts compute the same bits; the run fails if they do not.
+``configs/multiscale``; kernel 4's hypotheses and operand by that script's
+``msac_inputs``), checks kernels 1, 2, 3 and 5 bit-exact against that
+checkout's twins and kernel 4 within rtol 1e-5 of its twin, and times each
+wrapper as the path calls it with ``time_ms`` of the ``chip_smoke.py``
+beside this script — with the card held back while the host queues the
+call (``hold``, device time) and without (a host gap between launches adds
+to it) — whichever checkout's code it times.  A digest of each kernel's
+outputs shows whether two checkouts compute the same bits; the run fails
+if they do not.  Kernel 4 alone may sum its matches in another order in
+another checkout: for it the summary gives the largest difference between
+any two checkouts' scores in place of the digest's verdict.
 
 Prints one JSON line per checkout, then a summary line.
 """
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import importlib.util
 import json
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
 
 HERE = Path(__file__).resolve().parent
 BATCH = 16
@@ -61,6 +68,7 @@ def run_one(root: Path) -> dict:
     from tpuslam_torch.frontend.fast import select_keypoints
     from tpuslam_torch.kernels import brief as kb
     from tpuslam_torch.kernels import frontend as kf
+    from tpuslam_torch.kernels import pose as kp
     from tpuslam_torch.kernels.build import library
     from tpuslam_torch.model.slam import SlamPipeline
 
@@ -112,6 +120,16 @@ def run_one(root: Path) -> dict:
         "kernel 3", lambda: kb.brief_own_bin_dots(patches, bins, weights),
         lambda: kb.brief_own_bin_dots_reference(patches, bins, det.bin_weights_3d))
 
+    E, P = yard.msac_inputs(pipe, blur, kps)
+    scores = kp.msac_scores(E, P)
+    yard.require_msac_close(f"{root}: kernel 4", scores, kp.msac_scores_reference(E, P))
+    out["kernels"]["msac_scores"] = {
+        "ms": yard.time_ms(lambda: kp.msac_scores(E, P)),
+        "ms_no_hold": yard.time_ms(lambda: kp.msac_scores(E, P), hold=False),
+        "digest": _digest((scores,)), "shape": [*E.shape[:2], P.shape[-1] // 5],
+        "scores_f32": base64.b64encode(scores.cpu().numpy().tobytes()).decode(),
+    }
+
     pyr = pipeline(root / "configs" / "multiscale")
     det5, c5 = pyr.detector, pyr.detector.config
     und5 = undistort_batch(frames, pyr.undistort_idx, pyr.undistort_valid)
@@ -137,7 +155,7 @@ def main(argv: list[str]) -> int:
     if not argv or argv[0].startswith("-"):
         print(__doc__, file=sys.stderr)
         return 2
-    runs = []
+    runs, scores = [], []  # kernel 4's scores of each run, kept out of the printed records
     for root in argv:
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one", root],
                               capture_output=True, text=True, timeout=900)
@@ -146,6 +164,8 @@ def main(argv: list[str]) -> int:
             print(f"kernel_ab: {root} failed ({proc.returncode})", file=sys.stderr)
             return 1
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        scores.append(np.frombuffer(base64.b64decode(
+            runs[-1]["kernels"]["msac_scores"].pop("scores_f32")), dtype=np.float32))
         print(json.dumps(runs[-1]), flush=True)
     summary = {}
     for name in runs[0]["kernels"]:
@@ -160,8 +180,10 @@ def main(argv: list[str]) -> int:
                                         for root, v in by_root.items()},
             "same_bits": len({rec["digest"] for rec in recs}) == 1,
         }
+    summary["msac_scores"]["max_abs_diff_between_checkouts"] = max(
+        float(np.abs(a - b).max()) for a in scores for b in scores)
     print(json.dumps({"order": [r["root"] for r in runs], "summary": summary}), flush=True)
-    differ = [name for name, s in summary.items() if not s["same_bits"]]
+    differ = [name for name, s in summary.items() if not s["same_bits"] and name != "msac_scores"]
     if differ:
         print(f"kernel_ab: the checkouts compute different bits in {differ}", file=sys.stderr)
         return 1

@@ -21,6 +21,7 @@ from tpuslam_torch.kernels.brief import (
     brief_own_bin_dots,
     brief_own_bin_dots_reference,
     extract_brief_patches,
+    extract_patches_work,
     pack_bin_weights,
 )
 
@@ -89,6 +90,33 @@ def test_kernel2_twin_bit_exact_with_pallas(setup):
     ).numpy()
     assert got.shape == (2, 48, tb.padded_patch_len(PATCH)) and got.dtype == np.int8
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("patch_size", [25, 15])  # sides 40 and 24 (8 mod 16), S2p 1664 and 640
+def test_kernel2_twin_bit_exact_on_and_beyond_borders(setup, patch_size):
+    """A second patch size, keypoints on each border and corner and up to 5 px outside."""
+    blur = setup["blur"]
+    B, H, W = blur.shape
+    rng = np.random.default_rng(patch_size)
+    on = [(0, 0), (W - 1, 0), (0, H - 1), (W - 1, H - 1), (W / 2, 0), (W / 2, H - 1), (0, H / 2),
+          (W - 1, H / 2), (-0.5, -0.5), (-4.0, 3.0), (W + 4.5, H + 4.5), (W - 0.25, -3.0)]
+    outside = np.stack([rng.uniform(-5, W + 5, (B, 36)), rng.uniform(-5, H + 5, (B, 36))], -1)
+    xy = np.concatenate([np.broadcast_to(np.asarray(on), (B, len(on), 2)), outside], 1).astype(np.float32)
+    want = np.asarray(extract_brief_patches_tpu(jnp.asarray(blur), jnp.asarray(xy), patch_size, interpret=True))
+    got = extract_brief_patches(torch.from_numpy(blur), torch.from_numpy(xy), patch_size).numpy()
+    side, s2p = tb.patch_side(patch_size), tb.padded_patch_len(patch_size)
+    assert side % 16 == 8 and got.shape == (B, 48, s2p) and got.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+    assert not got[..., side * side :].any()  # the zero tail past side²
+    assert (got[:, 0, :side] == -128).sum() >= B * tb.rotation_patch_half(patch_size)  # outside → 0 − 128
+
+
+def test_kernel2_bound_at_main_path_shapes():
+    """The yardstick a redesign is held to: frames and keypoints in, patches out, no operations."""
+    work = extract_patches_work(16, 512, 1392, 1024, PATCH)
+    assert work.bytes == 16 * 512 * 1392 + 16 * 1024 * 8 + 16 * 1024 * 2304 and work.ops == 0
+    assert work.bound_by() == "bytes"
+    assert round(work.bound_us(), 2) == 14.71
 
 
 def test_kernel3_twin_bit_exact_with_pallas(setup):

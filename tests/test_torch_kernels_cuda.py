@@ -70,16 +70,41 @@ def test_kernel5_fused_nms_exact(frames, window):
         assert int((got[1] > 0).sum()) > 100
 
 
-def test_kernel2_patches_exact(frames, dev):
-    rng = np.random.default_rng(0)
+@pytest.mark.parametrize("k", [1, 333, 1024])
+@pytest.mark.parametrize("patch_size", [31, 25, 15])  # sides 48, 40 and 24: 16- and 8-byte units
+def test_kernel2_patches_exact(frames, dev, patch_size, k):
+    """Keypoints up to 5 px outside every border, and on each corner and edge."""
+    rng = np.random.default_rng(1000 * patch_size + k)
     b, h, w = frames.shape
-    xy = np.stack([rng.uniform(-5, w + 5, (b, 333)), rng.uniform(-5, h + 5, (b, 333))], -1)
+    xy = np.stack([rng.uniform(-5, w + 5, (b, k)), rng.uniform(-5, h + 5, (b, k))], -1)
+    corners = [(0, 0), (w - 1, 0), (0, h - 1), (w - 1, h - 1), (w / 2, 0), (0, h / 2),
+               (w - 0.5, h / 2), (w / 2, h - 0.5), (-0.9, -0.9), (1.5, 2.5)]
+    n = min(k, len(corners))
+    xy[:, :n] = np.asarray(corners[:n])
     xy = torch.from_numpy(xy.astype(np.float32)).to(dev)
-    got = kb.extract_brief_patches(frames, xy, 31)
-    want = kb.extract_brief_patches_reference(frames, xy, 31)
+    before = kb.extract_brief_patches.launches
+    got = kb.extract_brief_patches(frames, xy, patch_size)
+    want = kb.extract_brief_patches_reference(frames, xy, patch_size)
     torch.cuda.synchronize()
-    assert got.shape == (b, 333, padded_patch_len(31))
+    assert kb.extract_brief_patches.launches == before + 1
+    assert got.shape == (b, k, padded_patch_len(patch_size)) and got.dtype == torch.int8
     assert torch.equal(got, want)
+
+
+def test_kernel2_unaligned_image_view(frames, dev):
+    """A frame buffer that starts at an odd address: the aligned loads stay inside it."""
+    b, h, w = 2, 97, 211
+    flat = torch.from_numpy(np.random.default_rng(5).integers(0, 256, b * h * w + 3, dtype=np.uint8)).to(dev)
+    images = flat[3:].reshape(b, h, w)
+    rng = np.random.default_rng(6)
+    xy = np.stack([rng.uniform(-5, w + 5, (b, 200)), rng.uniform(-5, h + 5, (b, 200))], -1)
+    xy[0, 0], xy[1, 1] = (0, 0), (w - 1, h - 1)  # the buffer's first and last bytes
+    xy = torch.from_numpy(xy.astype(np.float32)).to(dev)
+    for patch_size in (31, 25):
+        got = kb.extract_brief_patches(images, xy, patch_size)
+        want = kb.extract_brief_patches_reference(images, xy, patch_size)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def _kernel3_case(case, rng):
@@ -173,18 +198,39 @@ def test_fast_ring_exhaustive(dev, contiguous):
             assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-def test_kernel4_msac_close(dev):
-    rng = np.random.default_rng(4)
-    B, H, M = 3, 300, 777
+def _kernel4_case(dev, B, H, M, seed=4):
+    rng = np.random.default_rng(seed)
     x1 = torch.from_numpy(rng.uniform(-0.6, 0.6, (B, M, 2)).astype(np.float32)).to(dev)
     x2 = x1 + torch.from_numpy(rng.normal(0, 2e-3, (B, M, 2)).astype(np.float32)).to(dev)
     valid = torch.from_numpy(rng.random((B, M)) > 0.1).to(dev)
     E = torch.from_numpy((rng.normal(size=(B, H, 9)) * 0.3).astype(np.float32)).to(dev)
-    P = kp.build_msac_operand(x1, x2, valid, 1e-6)
+    return E, kp.build_msac_operand(x1, x2, valid, 1e-6)
+
+
+# ragged in H and M; the smallest; the main path's H and M; M below one 16-byte unit
+@pytest.mark.parametrize("shape", [(3, 300, 777), (1, 1, 1), (2, 1024, 1024), (2, 130, 5)])
+def test_kernel4_msac_close(dev, shape):
+    E, P = _kernel4_case(dev, *shape)
+    before = kp.msac_scores.launches
     got = kp.msac_scores(E, P)
     want = kp.msac_scores_reference(E, P)
     torch.cuda.synchronize()
+    assert kp.msac_scores.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+
+
+def test_kernel4_same_bits_twice_and_invalid_pair_scores_zero(dev):
+    E, P = _kernel4_case(dev, 3, 300, 777)
+    P[1] = 0.0  # a pair with no valid match
+    first = kp.msac_scores(E, P)
+    second = kp.msac_scores(E, P)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert not first[1].any() and bool((first[0] > 0).all())
+    # an operand that does not start on a 16-byte boundary takes the 4-byte copies
+    E4, P4 = _kernel4_case(dev, 2, 130, 1024)
+    shifted = torch.empty(P4.numel() + 1, device=dev)[1:].reshape(P4.shape).copy_(P4)
+    assert shifted.data_ptr() % 16 and torch.equal(kp.msac_scores(E4, shifted), kp.msac_scores(E4, P4))
 
 
 def test_wrappers_reject_bad_input(dev):

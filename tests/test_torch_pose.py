@@ -22,7 +22,7 @@ from tpuslam_torch.config.schema import DetectorConfig
 from tpuslam_torch.frontend import matcher as tm
 from tpuslam_torch.frontend import pose as tpose
 from tpuslam_torch.frontend.detector import FeatureDetector
-from tpuslam_torch.kernels.pose import build_msac_operand, msac_scores, msac_scores_reference
+from tpuslam_torch.kernels.pose import build_msac_operand, msac_scores, msac_scores_reference, msac_work
 
 H_HYP, K_CAP = 256, 512
 
@@ -95,6 +95,36 @@ def test_kernel4_twin_matches_pallas(pairs):
         msac_scores(torch.from_numpy(E)[None], P_t[None]),
         msac_scores_reference(torch.from_numpy(E)[None], P_t[None]),
     )
+
+
+def test_kernel4_twin_matches_pallas_two_grid_steps_and_invalid_pair():
+    """A second (H, M): H 512 is two steps of the Pallas grid (block_h 256), M 384;
+    the batch lifted with vmap, its last pair without a valid match scoring exactly 0."""
+    rng = np.random.default_rng(12)
+    B, H, M = 3, 512, 384
+    x1 = rng.uniform(-0.6, 0.6, (B, M, 2)).astype(np.float32)
+    x2 = x1 + rng.normal(0, 2e-3, (B, M, 2)).astype(np.float32)
+    valid = rng.random((B, M)) > 0.15
+    valid[2] = False
+    thr = np.float32(1e-6)
+    E = (rng.normal(size=(B, H, 9)) * 0.3).astype(np.float32)
+    P_j = j_build_operand(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(valid), jnp.asarray(thr))
+    want = np.asarray(jax.vmap(lambda e, p: msac_scores_pallas(e, p, interpret=True))(jnp.asarray(E), P_j))
+    P_t = build_msac_operand(torch.from_numpy(x1), torch.from_numpy(x2), torch.from_numpy(valid), thr)
+    np.testing.assert_array_equal(P_t.numpy(), np.asarray(P_j))
+    got = msac_scores(torch.from_numpy(E), P_t).numpy()
+    assert got.shape == (B, H)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert not got[2].any() and not want[2].any()
+    assert (got[:2] > 0).all()
+
+
+def test_kernel4_bound_at_main_path_shapes():
+    """The yardstick a redesign is held to: 97 float32 operations per (hypothesis, match)."""
+    work = msac_work(16, 1024, 1024)
+    assert work.ops == 97 * 16 * 1024 * 1024 and work.bytes == 4 * (16 * 1024 * 9 + 16 * 45 * 1024 + 16 * 1024)
+    assert work.bound_by() == "operations"
+    assert round(work.bound_us(), 2) == 24.29
 
 
 def test_estimate_relative_pose_matches_with_reference_draws(pairs):

@@ -5,10 +5,22 @@
 // tpuslam_torch/frontend/brief.py::extract_brief_patches_i8.
 //   Bound on the H100: bytes — it is a gather that moves K*S2p bytes per
 //   frame (37.7 MB per 16-frame chunk at K=1024, S2p=2304) and computes
-//   nothing.  Design: one block per (frame, keypoint); consecutive threads
-//   read consecutive pixels of a patch row and write consecutive output
-//   bytes, so both sides coalesce; the 48-wide rows of neighbouring
-//   patches overlap, and L1/L2 absorb the re-reads of the blurred image.
+//   nothing; the 11.4 MB of image sit in L2 right after kernel 1 wrote them.
+//   Moved one byte a thread at a time, the count of loads and stores is
+//   the limit, not the bytes.
+//   Design: a thread owns one aligned unit of the output — 16 bytes, or 8
+//   where the patch side is 8 mod 16 — which never straddles a patch row
+//   (the side is a multiple of 8, S2p of 128), and writes it with one vector
+//   store.  Its row and column in the patch are worked out once: a block has
+//   one thread per unit of a patch and walks a run of consecutive keypoints,
+//   sized so that the whole grid is resident at once.  The source row starts
+//   at any byte (x - half), so the thread reads the two aligned units that
+//   cover it with two vector loads, picks its words with selects, shifts
+//   them together (__funnelshift_r) and subtracts 128 from four pixels at a
+//   time (word ^ 0x80808080).  A unit that touches a border, or whose aligned
+//   cover would leave the image buffer, goes byte by byte: a pixel outside
+//   the image is 0, so its byte is 0x80.  Units past side^2 are zeros.
+//   Neighbouring patches' rows overlap, and L1/L2 absorb the re-reads.
 //
 // Kernel 3 replaces tpuslam/kernels/brief_pallas.py::brief_own_bin_dots
 // (_own_bin_kernel).  Plain twin: tpuslam_torch/frontend/brief.py::
@@ -43,7 +55,6 @@
 
 namespace {
 
-constexpr int kExtractThreads = 256;
 constexpr int kSlab = 64;                  // keypoints of one bin per slab (M)
 constexpr int kNTile = 128;                // pairs per block (N)
 constexpr int kKChunk = 64;                // bytes of S2p per pipeline stage
@@ -54,30 +65,90 @@ constexpr int kDotThreads = 32 * kDotWarps;
 constexpr int kSortThreads = 1024;
 constexpr int kMaxBins = 128;
 
-__global__ void __launch_bounds__(kExtractThreads)
-extract_kernel(const uint8_t* __restrict__ blurred, const float* __restrict__ kps_xy,
-               int8_t* __restrict__ out, int H, int W, int K, int side, int half,
-               int s2p) {
-  const int bk = blockIdx.x;  // frame * K + keypoint
-  const int b = bk / K;
-  // float -> int truncates toward zero, then clip (brief_pallas.py:133-134).
-  const int xi = min(max((int)kps_xy[2 * bk], 0), W - 1);
-  const int yi = min(max((int)kps_xy[2 * bk + 1], 0), H - 1);
-  const uint8_t* img = blurred + (size_t)b * H * W;
-  int8_t* dst = out + (size_t)bk * s2p;
-  const int n = side * side;
-  for (int i = threadIdx.x; i < s2p; i += kExtractThreads) {
-    int v = 0;
-    if (i < n) {
-      const int r = i / side;
-      const int c = i - r * side;
-      const int gy = yi - half + r;
-      const int gx = xi - half + c;
-      const int px =
-          (gy >= 0 && gy < H && gx >= 0 && gx < W) ? (int)img[(size_t)gy * W + gx] : 0;
-      v = px - 128;
+// The U = 4 NW bytes of row gy of a frame from column gx on, each minus 128,
+// as NW little-endian words; a pixel outside the frame counts as 0.
+template <int NW>
+__device__ __forceinline__ void gather_unit(const uint8_t* __restrict__ blurred,
+                                            size_t image_bytes, int frame, int gy, int gx,
+                                            int H, int W, uint32_t (&w)[NW]) {
+  constexpr int U = 4 * NW;
+  const bool row_in = gy >= 0 && gy < H;
+  const uint8_t* row = blurred + ((size_t)frame * H + gy) * W;  // read only if row_in
+  const uintptr_t a = (uintptr_t)(row + gx);
+  const uintptr_t a0 = a & ~(uintptr_t)(U - 1);
+  const uintptr_t first = (uintptr_t)blurred;
+  if (row_in && gx >= 0 && gx + U <= W && a0 >= first && a0 + 2 * U <= first + image_bytes) {
+    // inside: the two aligned units that cover the U bytes from a
+    uint32_t v[2 * NW + 1];
+    if (NW == 4) {
+      const uint4 lo = reinterpret_cast<const uint4*>(a0)[0];
+      const uint4 hi = reinterpret_cast<const uint4*>(a0)[1];
+      v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+      v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+    } else {
+      const uint2 lo = reinterpret_cast<const uint2*>(a0)[0];
+      const uint2 hi = reinterpret_cast<const uint2*>(a0)[1];
+      v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
     }
-    dst[i] = (int8_t)v;
+    v[2 * NW] = 0;
+    // bring word (a - a0) / 4 to the front: a conditional move by 2 words, then by 1
+    const int word = (int)(a - a0) >> 2;
+    if (NW == 4) {
+#pragma unroll
+      for (int i = 0; i + 2 <= 2 * NW; ++i) v[i] = (word & 2) ? v[i + 2] : v[i];
+    }
+#pragma unroll
+    for (int i = 0; i + 1 <= 2 * NW; ++i) v[i] = (word & 1) ? v[i + 1] : v[i];
+    const int shift = 8 * (int)(a & 3);
+#pragma unroll
+    for (int i = 0; i < NW; ++i) w[i] = __funnelshift_r(v[i], v[i + 1], shift) ^ 0x80808080u;
+  } else {
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      w[i] = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int x = gx + 4 * i + j;
+        const uint32_t px = (row_in && x >= 0 && x < W) ? row[x] : 0;
+        w[i] |= (px ^ 0x80u) << (8 * j);
+      }
+    }
+  }
+}
+
+// A thread per U-byte unit of a patch (a patch of more than 1024 units gives
+// a thread several); the block walks keypoints blockIdx.x * per_block ... of
+// the B * K.  units_per_row = side / U.
+template <int NW>
+__global__ void extract_kernel(const uint8_t* __restrict__ blurred,
+                               const float* __restrict__ kps_xy, int8_t* __restrict__ out,
+                               int H, int W, int K, int n_kp, int per_block, int side,
+                               int half, int s2p, int units_per_row, size_t image_bytes) {
+  constexpr int U = 4 * NW;
+  const int kp0 = blockIdx.x * per_block;
+  const int kp1 = min(kp0 + per_block, n_kp);
+  for (int u = threadIdx.x; u * U < s2p; u += blockDim.x) {
+    const int r = u / units_per_row;  // at or past side: the zero tail after side * side
+    const int c0 = (u - r * units_per_row) * U;
+    float2 xy = make_float2(kps_xy[2 * kp0], kps_xy[2 * kp0 + 1]);
+    for (int kp = kp0; kp < kp1; ++kp) {
+      const float2 cur = xy;  // the next keypoint is on its way while this one is copied
+      if (kp + 1 < kp1) xy = make_float2(kps_xy[2 * kp + 2], kps_xy[2 * kp + 3]);
+      uint32_t w[NW];
+#pragma unroll
+      for (int i = 0; i < NW; ++i) w[i] = 0;
+      if (r < side) {
+        // float -> int truncates toward zero, then clip (brief_pallas.py:133-134).
+        const int xi = min(max((int)cur.x, 0), W - 1);
+        const int yi = min(max((int)cur.y, 0), H - 1);
+        gather_unit<NW>(blurred, image_bytes, kp / K, yi - half + r, xi - half + c0, H, W, w);
+      }
+      int8_t* dst = out + (size_t)kp * s2p + (size_t)u * U;
+      if (NW == 4)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      else
+        *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    }
   }
 }
 
@@ -271,9 +342,27 @@ own_bin_kernel(const int8_t* __restrict__ patches, const int32_t* __restrict__ o
 extern "C" int tpuslam_extract_patches(const void* blurred, const void* kps_xy, void* out,
                                        int B, int H, int W, int K, int side, int half,
                                        int s2p, void* stream) {
-  extract_kernel<<<B * K, kExtractThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)blurred, (const float*)kps_xy, (int8_t*)out, H, W, K, side, half,
-      s2p);
+  // a unit must not straddle a patch row or the end of a patch, and is stored aligned
+  const int unit = side % 16 == 0 ? 16 : 8;
+  if (side % 8 || s2p % unit || s2p < side * side || (uintptr_t)out % unit)
+    return (int)cudaErrorInvalidValue;
+  const int threads = min((s2p / unit + 31) / 32 * 32, 1024);
+  auto kernel = unit == 16 ? extract_kernel<4> : extract_kernel<2>;
+  int device = 0, sms = 0, blocks_per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, kernel, threads, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks_per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  // as few keypoints a block as keep every block resident at once
+  const int n_kp = B * K;
+  const int resident = sms * blocks_per_sm;
+  const int per_block = (n_kp + resident - 1) / resident;
+  const int blocks = (n_kp + per_block - 1) / per_block;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)blurred, (const float*)kps_xy, (int8_t*)out, H, W, K, n_kp, per_block, side,
+      half, s2p, side / unit, (size_t)B * H * W);
   return (int)cudaGetLastError();
 }
 
