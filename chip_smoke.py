@@ -8,9 +8,11 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
 3. kernels — each of the five kernels against its plain PyTorch twin on the
    card, on inputs made from the KITTI fixtures: kernels 1-4 at the main
    path's shapes (1-3 exact, 4 to rtol 1e-5), kernel 5 exact at the
-   pyramid's four level shapes; kernels 2 and 4 also at a ragged shape each
+   pyramid's four level shapes; kernels 2, 4 and 5 also at ragged shapes
    (keypoints beyond every border and a second patch size; H, M off the
-   tiles with invalid matches), and kernel 4 twice for identical bits;
+   tiles with invalid matches; images below and just over kernel 5's tile,
+   rows and a buffer that start at any byte, windows 1 to 14, dense, tied
+   and empty images), and kernel 4 twice for identical bits;
    median device times of both (CUDA events, the card held back while the
    host queues the call), each kernel's bound (``*_work`` beside its
    wrapper, ``tpuslam_torch/kernels/bounds.py``) and, as yardsticks the
@@ -28,7 +30,9 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    width) and ``nms_fused=True``: exactly 24 launches of kernel 5 (4 levels
    x 6 chunks) and none of kernel 1 in the timed pass, then the same path
    with ``nms_fused=False`` (24 of kernel 1, none of kernel 5), timed in
-   turns (fused, kernel 1, kernel 1, fused) for frames/s of each.
+   turns (fused, kernel 1, kernel 1, fused) for frames/s of each; the
+   kernels' device time a chunk is set against the timed chunk of either
+   path (``[main] kernels``, ``[pyramid] kernels``).
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -306,10 +310,55 @@ def phase_kernels(pipeline, frames: torch.Tensor) -> list[dict]:
     return records
 
 
+def check_ragged_kernel5(images: torch.Tensor, args: dict) -> None:
+    """Kernel 5 against its twin off the pyramid's shapes: below and just over its 64 x 96
+    tile, rows and a buffer that start at any byte, every kind of window, dense and empty images."""
+    from tpuslam_torch.kernels import frontend as kf
+
+    def exact(label, img, **over):
+        kw = {**args, **over}
+        got = kf.fused_frontend_nms_batch(img, **kw)
+        want = kf.fused_frontend_nms_reference(img, **kw)
+        for g, w, what in zip(got, want, ("blur", "key")):
+            if not torch.equal(g, w):
+                raise AssertionError(f"fused_frontend_nms_batch ({label}, {tuple(img.shape)}, window "
+                                     f"{kw['window']}): {int((g != w).sum())} {what} values differ from the twin")
+        return int((got[1] > 0).sum())
+
+    survivors = 0
+    for b, h, w in ((3, 77, 203), (2, 20, 37), (2, 65, 97), (1, 129, 193)):
+        crop = images[:b, 100 : 100 + h, 300 : 300 + w].contiguous()
+        for window in (1, 2, 5, 12, 14):
+            survivors += exact("ragged", crop, window=window)
+    flat = torch.empty(2 * 97 * 211 + 1, dtype=torch.uint8, device=images.device)
+    odd = flat[1:].reshape(2, 97, 211).copy_(images[:2, 50:147, 300:511])
+    survivors += exact("odd base address", odd)
+    rng = np.random.default_rng(3)
+    noise = torch.from_numpy(rng.integers(0, 256, (2, 150, 333), dtype=np.uint8)).to(images.device)
+    dense = exact("noise, every other pixel a corner", noise, threshold=0, contiguous=1, window=1)
+    if dense < noise.numel() // 3:
+        raise AssertionError(f"kernel 5: only {dense} corners on the dense image")
+    for window in (5, 12):
+        exact("noise", noise, threshold=0, contiguous=1, window=window)
+    lattice = torch.zeros((2, 150, 333), dtype=torch.uint8, device=images.device)
+    lattice[:, ::4, ::4] = 255  # equal scores: only the inverted raster index decides
+    if exact("lattice of equal corners", lattice) != 2:
+        raise AssertionError("kernel 5: the first of equal corners must beat all it can see")
+    if exact("zeros", torch.zeros_like(noise)) != 0:
+        raise AssertionError("kernel 5: survivors on an empty image")
+    log(f"[kernels] fused_frontend_nms_batch: exact at 4 ragged shapes x windows 1, 2, 5, 12, 14 "
+        f"({survivors} survivors), on an odd base address, on noise ({dense} corners at window 1), "
+        f"on a lattice of equal corners and on zeros")
+
+
 def phase_kernel5(pipeline, frames: torch.Tensor) -> dict:
-    """Kernel 5 against its twin at the pyramid's level shapes, on resized undistorted frames."""
+    """Kernel 5 against its twin at the pyramid's level shapes, on resized undistorted frames;
+    kernels 2 and 3 timed at each level's keypoint capacity, as the pyramid path calls them."""
     from tpuslam_torch.common.camera import undistort_batch
+    from tpuslam_torch.frontend.brief import orientations_from_patches, quantize_angles
     from tpuslam_torch.frontend.detector import resize_batch_u8
+    from tpuslam_torch.frontend.fast import select_from_key
+    from tpuslam_torch.kernels import brief as kb
     from tpuslam_torch.kernels import frontend as kf
 
     det = pipeline.detector
@@ -318,8 +367,8 @@ def phase_kernel5(pipeline, frames: torch.Tensor) -> dict:
     args = dict(threshold=c.intensity_threshold, contiguous=c.contiguous_pixels_threshold,
                 window=c.suppression_window_size, taps=det.blur_kernel)
     levels = det._feasible_levels(*und.shape[-2:])
-    shapes = []
-    for level, h, w in levels:
+    shapes, others = [], []
+    for (level, h, w), cap in zip(levels, det._level_capacities(levels)):
         img = und if level == 0 else resize_batch_u8(und, h, w)
         got = kf.fused_frontend_nms_batch(img, **args)
         want = kf.fused_frontend_nms_reference(img, **args)
@@ -329,6 +378,17 @@ def phase_kernel5(pipeline, frames: torch.Tensor) -> dict:
                                    work=kf.frontend_nms_work(*img.shape)))
         if int((got[1] > 0).sum()) < BATCH * 100:
             raise AssertionError(f"kernel 5: too few survivors at {tuple(img.shape)}")
+        blur, key = got
+        kps = select_from_key(key, window=c.suppression_window_size, max_keypoints=cap)
+        patches = kb.extract_brief_patches(blur, kps.xy, c.patch_size)
+        angles = orientations_from_patches(patches, det.moment_weights, kps, c.patch_size, (h, w))
+        bins = quantize_angles(angles, c.brief_quantized_bins)
+        others.append({
+            "keypoints": cap,
+            "extract_brief_patches_ms": time_ms(lambda: kb.extract_brief_patches(blur, kps.xy, c.patch_size)),
+            "brief_own_bin_dots_ms": time_ms(lambda: kb.brief_own_bin_dots(patches, bins, det.bin_weights)),
+        })
+    check_ragged_kernel5(und, args)
     rec = dict(shapes[0])
     rec["ms"] = sum(r["ms"] for r in shapes)  # one 16-frame chunk: the four level shapes
     rec["plain_ms"] = sum(r["plain_ms"] for r in shapes)
@@ -337,8 +397,8 @@ def phase_kernel5(pipeline, frames: torch.Tensor) -> dict:
     rec["bound_ms"] = rec["bound_us"] / 1e3
     rec["bound_share"] = rec["bound_us"] / (rec["ms"] * 1e3)
     rec["per_level"] = [{"shape": [BATCH, h, w], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                         "bound_us": r["bound_us"]}
-                        for (_, h, w), r in zip(levels, shapes)]
+                         "bound_us": r["bound_us"], **o}
+                        for (_, h, w), r, o in zip(levels, shapes, others)]
     return rec
 
 
@@ -490,8 +550,25 @@ def main() -> int:
     kernel_ms = sum(r["ms"] * r["launches_per_chunk"] for r in records if r["path"].startswith("main"))
     log(f"[main] kernels {kernel_ms:.4f} ms of a {chunk_ms:.2f} ms chunk "
         f"({100 * kernel_ms / chunk_ms:.2f}%)")
+    # the same for the pyramid path with kernel 5: its four launches a chunk, kernels 2 and 3
+    # as timed at each level's keypoint capacity, kernel 4 at the main path's shapes (the same)
+    by_name = {r["name"]: r for r in records}
+    k5 = by_name["fused_frontend_nms_batch"]
+    pyr_chunk_ms = 1e3 * N_FRAMES / float(np.mean(pyr_fps[True])) / n_chunks
+    pyr_kernel_ms = {
+        "fused_frontend_nms_batch": k5["ms"],
+        "extract_brief_patches": sum(lv["extract_brief_patches_ms"] for lv in k5["per_level"]),
+        "brief_own_bin_dots": sum(lv["brief_own_bin_dots_ms"] for lv in k5["per_level"]),
+        "msac_scores": by_name["msac_scores"]["ms"] * pyr_counts[True]["msac_scores"] / n_chunks,
+    }
+    pyr_total = sum(pyr_kernel_ms.values())
+    log(f"[pyramid] kernels {pyr_total:.4f} ms of a {pyr_chunk_ms:.2f} ms chunk "
+        f"({100 * pyr_total / pyr_chunk_ms:.2f}%): " +
+        ", ".join(f"{k} {v:.4f}" for k, v in pyr_kernel_ms.items()) +
+        f"; kernel 5 alone {100 * k5['ms'] / pyr_chunk_ms:.2f}%")
     log(json.dumps({"kernels": records, "vo_fps": fps, "vo_frames": N_FRAMES, "batch": BATCH,
                     "main_chunk_ms": chunk_ms, "main_kernel_ms_per_chunk": kernel_ms,
+                    "pyramid_chunk_ms": pyr_chunk_ms, "pyramid_kernel_ms_per_chunk": pyr_kernel_ms,
                     "pyramid_fps_nms_fused": pyr_fps[True], "pyramid_fps_kernel1": pyr_fps[False]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ against drift.  Each runs in a process of its own, since each has its own
 ``tpuslam_torch``: the process builds that checkout's kernels, makes the
 main path's inputs from the KITTI fixtures as ``chip_smoke.py`` does
 (16 undistorted frames, ``configs/``; kernel 5 at the four level shapes of
-``configs/multiscale``; kernel 4's hypotheses and operand by that script's
+``configs/multiscale`` and, as its dense case, on uniform noise at the
+largest of them; kernel 4's hypotheses and operand by that script's
 ``msac_inputs``), checks kernels 1, 2, 3 and 5 bit-exact against that
 checkout's twins and kernel 4 within rtol 1e-5 of its twin, and times each
 wrapper as the path calls it with ``time_ms`` of the ``chip_smoke.py``
@@ -21,7 +22,10 @@ if they do not.  Kernel 4 alone may sum its matches in another order in
 another checkout: for it the summary gives the largest difference between
 any two checkouts' scores in place of the digest's verdict.
 
-Prints one JSON line per checkout, then a summary line.
+Prints one JSON line per checkout, then a summary line: each kernel's
+times run by run and their means per checkout (kernel 5's also level by
+level, at the pyramid's four shapes), and a verdict that names the kernels
+whose output bits are identical in every checkout.
 """
 
 from __future__ import annotations
@@ -53,6 +57,23 @@ def _digest(tensors) -> str:
     for t in tensors:
         h.update(t.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def pretest_group_share(images, threshold: int) -> float:
+    """Share of the aligned 4-pixel groups of (B, H, W) uint8 images in which some pixel
+    of the 3-px interior passes FAST's pretest (>= 3 of circle pixels 0, 4, 8, 12 brighter
+    than centre + threshold, or >= 3 darker): the groups whose rings kernel 5 computes."""
+    import torch
+
+    x = images.to(torch.int16)
+    c = x[:, 3:-3, 3:-3]
+    ring = (x[:, :-6, 3:-3], x[:, 3:-3, 6:], x[:, 6:, 3:-3], x[:, 3:-3, :-6])
+    bright = sum((n > c + threshold).to(torch.int8) for n in ring)
+    dark = sum((n < c - threshold).to(torch.int8) for n in ring)
+    passes = torch.zeros(images.shape, dtype=torch.bool, device=images.device)
+    passes[:, 3:-3, 3:-3] = (bright >= 3) | (dark >= 3)
+    w4 = images.shape[-1] // 4 * 4
+    return float(passes[..., :w4].reshape(*images.shape[:2], w4 // 4, 4).any(-1).float().mean())
 
 
 def run_one(root: Path) -> dict:
@@ -140,11 +161,21 @@ def run_one(root: Path) -> dict:
         img = und5 if level == 0 else resize_batch_u8(und5, h, w)
         levels.append(timed(f"kernel 5 at {h}x{w}", lambda: kf.fused_frontend_nms_batch(img, **args5),
                             lambda: kf.fused_frontend_nms_reference(img, **args5), [BATCH, h, w])[1])
+        levels[-1]["pretest_group_share"] = pretest_group_share(img, c5.intensity_threshold)
     out["kernels"]["fused_frontend_nms_batch"] = {
         "ms": sum(r["ms"] for r in levels), "ms_no_hold": sum(r["ms_no_hold"] for r in levels),
         "digest": hashlib.sha256("".join(r["digest"] for r in levels).encode()).hexdigest()[:16],
         "per_level": levels,
     }
+    # Kernel 5's time depends on the data where it lists the pixel groups that pass FAST's
+    # pretest: uniform noise at the largest level shape, where most groups do, is its dense case.
+    noise = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (BATCH, *und5.shape[-2:]), dtype=np.uint8)).cuda()
+    out["kernels"]["fused_frontend_nms_batch_on_noise"] = timed(
+        "kernel 5 on noise", lambda: kf.fused_frontend_nms_batch(noise, **args5),
+        lambda: kf.fused_frontend_nms_reference(noise, **args5), list(noise.shape))[1]
+    out["kernels"]["fused_frontend_nms_batch_on_noise"]["pretest_group_share"] = pretest_group_share(
+        noise, c5.intensity_threshold)
     return out
 
 
@@ -180,10 +211,25 @@ def main(argv: list[str]) -> int:
                                         for root, v in by_root.items()},
             "same_bits": len({rec["digest"] for rec in recs}) == 1,
         }
+        if "pretest_group_share" in recs[-1]:
+            summary[name]["pretest_group_share"] = recs[-1]["pretest_group_share"]
+        if "per_level" in recs[0]:  # kernel 5: the pyramid's level shapes, one by one
+            summary[name]["level_shapes"] = [lv["shape"] for lv in recs[0]["per_level"]]
+            summary[name]["level_pretest_group_share"] = [
+                lv["pretest_group_share"] for lv in recs[-1]["per_level"]]
+            for key in ("ms", "ms_no_hold"):
+                summary[name][f"mean_level_{key}_by_root"] = {
+                    root: [sum(x["per_level"][i][key] for x in v) / len(v)
+                           for i in range(len(v[0]["per_level"]))]
+                    for root, v in by_root.items()}
     summary["msac_scores"]["max_abs_diff_between_checkouts"] = max(
         float(np.abs(a - b).max()) for a in scores for b in scores)
-    print(json.dumps({"order": [r["root"] for r in runs], "summary": summary}), flush=True)
     differ = [name for name, s in summary.items() if not s["same_bits"] and name != "msac_scores"]
+    same = [name for name in summary if name not in differ and name != "msac_scores"]
+    verdict = (f"{len(set(r['root'] for r in runs))} checkout(s), {len(runs)} run(s): identical output "
+               f"bits in {same}" + (f", different bits in {differ}" if differ else ""))
+    print(json.dumps({"order": [r["root"] for r in runs], "summary": summary, "verdict": verdict}),
+          flush=True)
     if differ:
         print(f"kernel_ab: the checkouts compute different bits in {differ}", file=sys.stderr)
         return 1

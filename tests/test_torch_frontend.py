@@ -42,7 +42,8 @@ def taps():
 
 
 def _pallas_interpret(fn_name: str, crop: np.ndarray, **kw) -> tuple[np.ndarray, ...]:
-    """Run a Pallas frontend kernel of the reference in interpret mode on one crop."""
+    """Run a Pallas frontend kernel of the reference in interpret mode on one crop
+    (H, W), or on a batch (B, H, W), whose outputs keep the batch axis."""
     from tpuslam.kernels import frontend_pallas as fp
 
     orig = fp.pl.pallas_call
@@ -53,10 +54,11 @@ def _pallas_interpret(fn_name: str, crop: np.ndarray, **kw) -> tuple[np.ndarray,
 
     fp.pl.pallas_call = interp_call
     try:
-        out = getattr(fp, fn_name).__wrapped__(jnp.asarray(crop)[None], **kw)
+        batch = jnp.asarray(crop) if crop.ndim == 3 else jnp.asarray(crop)[None]
+        out = getattr(fp, fn_name).__wrapped__(batch, **kw)
     finally:
         fp.pl.pallas_call = orig
-    return tuple(np.asarray(o[0]) for o in out)
+    return tuple(np.asarray(o if crop.ndim == 3 else o[0]) for o in out)
 
 
 @pytest.fixture(scope="module")
@@ -87,6 +89,24 @@ def test_kernel5_twin_bit_exact_with_pallas(crop, taps, window):
     assert int((key > 0).sum()) > 50
     np.testing.assert_array_equal(key[0].numpy(), want_key.astype(np.int64))
     np.testing.assert_array_equal(blur[0].numpy(), want_blur)
+
+
+@pytest.mark.parametrize("window", [1, 5, 12, 14])
+def test_kernel5_twin_bit_exact_with_pallas_ragged(kitti_frames, taps, window):
+    """The same at 2 x 77 x 203: a width that is no multiple of 4, 16 or 128 and a height
+    that is no multiple of any tile's, where every block of either kernel is a partial one."""
+    frames = np.ascontiguousarray(np.stack([f[200:277, 500:703] for f in kitti_frames[:2]]))
+    assert frames.shape == (2, 77, 203)
+    want_blur, want_key = _pallas_interpret(
+        "fused_frontend_nms_batch", frames, threshold=20, contiguous=12, window=window
+    )
+    blur, key = fused_frontend_nms_reference(
+        torch.from_numpy(frames), threshold=20, contiguous=12, window=window, taps=taps
+    )
+    assert key.dtype == torch.int64 and want_key.dtype == np.uint32
+    assert int((key > 0).sum()) > (10 if window > 1 else 100)
+    np.testing.assert_array_equal(key.numpy(), want_key.astype(np.int64))
+    np.testing.assert_array_equal(blur.numpy(), want_blur)
 
 
 def test_kernel5_wrapper_on_cpu_is_the_twin(crop, taps):

@@ -7,7 +7,9 @@ without the suite's conftest:
 ``python -m pytest tests/test_torch_kernels_cuda.py --noconftest -p no:cacheprovider``.
 Kernels 1-3 and 5 must match exactly; kernel 4 to rtol 1e-5, because it
 sums the matches in another order than the twin.  Kernels 1 and 5 also meet
-every one of the 65,536 bright and dark FAST circle patterns.
+every one of the 65,536 bright and dark FAST circle patterns, through the
+one SWAR FAST they share; kernel 5 also runs at shapes off its tile, on
+rows and buffers that start at any byte, and on dense and empty images.
 """
 
 from pathlib import Path
@@ -55,7 +57,7 @@ def test_kernel1_frontend_exact(frames):
         assert int(got[1].sum()) > 500
 
 
-@pytest.mark.parametrize("window", [5, 12, 14])
+@pytest.mark.parametrize("window", [1, 5, 12, 14])
 def test_kernel5_fused_nms_exact(frames, window):
     taps = torch.from_numpy(gaussian_kernel().astype(np.float32))
     for contiguous in (9, 12):
@@ -68,6 +70,72 @@ def test_kernel5_fused_nms_exact(frames, window):
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w)
         assert int((got[1] > 0).sum()) > 100
+
+
+def _kernel5_exact(images, window, contiguous=9, threshold=20):
+    taps = torch.from_numpy(gaussian_kernel().astype(np.float32))
+    args = dict(threshold=threshold, contiguous=contiguous, window=window, taps=taps)
+    got = kf.fused_frontend_nms_batch(images, **args)
+    want = kf.fused_frontend_nms_reference(images, **args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+    return got
+
+
+# kernel 5's tile is 64 x 96: below one tile; one pixel over a tile and over two; widths that are
+# not multiples of 4 (rows start at any byte), of 16 but not 4, of 8 but not 16; one tile exactly
+@pytest.mark.parametrize("shape", [(1, 20, 37), (2, 7, 8), (2, 65, 97), (1, 129, 193), (2, 77, 203),
+                                   (1, 70, 206), (1, 128, 200), (1, 64, 96), (3, 100, 300)])
+@pytest.mark.parametrize("window", [1, 2, 5, 12, 14])
+def test_kernel5_ragged_shapes_exact(frames, shape, window):
+    b, h, w = shape
+    images = frames[:b, 100 : 100 + h, 200 : 200 + w].contiguous()
+    _, key = _kernel5_exact(images, window)
+    if h * w > 5000:
+        assert int((key > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("offset", [1, 2, 7, 8])
+def test_kernel5_unaligned_base(frames, dev, offset):
+    """An image buffer that starts at an odd address: the aligned loads stay inside it."""
+    b, h, w = 2, 97, 211
+    flat = torch.empty(b * h * w + offset, dtype=torch.uint8, device=dev)
+    images = flat[offset:].reshape(b, h, w).copy_(frames[:b, 50 : 50 + h, 300 : 300 + w])
+    assert images.data_ptr() % 16 == offset and images.is_contiguous()
+    for window in (5, 12):
+        _kernel5_exact(images, window)
+
+
+def _kernel5_synthetic(kind: str) -> np.ndarray:
+    h, w = 150, 333
+    if kind == "zeros":
+        return np.zeros((2, h, w), np.uint8)
+    if kind == "white":
+        return np.full((2, h, w), 255, np.uint8)
+    if kind == "noise":  # at threshold 0 and a run of 1 most pixels are corners: dense keys
+        return np.random.default_rng(3).integers(0, 256, (2, h, w), dtype=np.uint8)
+    # a lattice of lone bright pixels: every one a corner with the same score,
+    # so only the inverted raster index in the key decides who survives
+    img = np.zeros((2, h, w), np.uint8)
+    img[:, ::4, ::4] = 255
+    return img
+
+
+@pytest.mark.parametrize("kind", ["zeros", "white", "noise", "lattice"])
+@pytest.mark.parametrize("window", [1, 5, 12, 14])
+def test_kernel5_dense_and_empty_exact(dev, kind, window):
+    images = torch.from_numpy(_kernel5_synthetic(kind)).to(dev)
+    dense = kind == "noise"
+    _, key = _kernel5_exact(images, window, contiguous=1 if dense else 12, threshold=0 if dense else 20)
+    survivors = int((key > 0).sum())
+    if kind in ("zeros", "white"):
+        assert survivors == 0
+    elif dense:
+        assert survivors > (images.numel() // 3 if window == 1 else 10)
+    else:  # equal scores everywhere: the first corner in raster order beats all it can see
+        assert int(key[0].max()) >> 20 == 16 * 255 and int(key[0, 4, 4]) > 0
+        assert survivors > 5000 if window == 1 else survivors == 2
 
 
 @pytest.mark.parametrize("k", [1, 333, 1024])

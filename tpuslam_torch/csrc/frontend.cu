@@ -21,13 +21,10 @@
 //     the 9 x 12-byte neighbourhood of its strip in registers (27 words);
 //     of 1-16 rows a thread and 64-512 threads a block, 3 rows of 128
 //     threads (95 registers, five blocks an SM) ran fastest on the H100;
-//   - FAST runs 4 pixels at once in the bytes of a word: the circle pixel
-//     i of the 4 pixels is one funnel shift, the bright and dark compares
-//     against the saturated centre +- threshold are SWAR byte compares, their
-//     results go into per-byte 16-bit masks (their bit shifts done as
-//     __umulhi, on the multiplier's pipe), and the SAD uses __vabsdiffu4;
-//     each pixel's decision is then a byte permute, a multiply-add pretest
-//     and four shift-ANDs per mask, with no branch (fast.cuh);
+//   - FAST runs 4 pixels at once in the bytes of a word (fast.cuh's
+//     fast4_ring and fast4_corner, shared with kernel 5): SWAR byte compares
+//     into per-byte 16-bit masks, then per pixel a byte permute, a
+//     multiply-add pretest and four shift-ANDs per mask, with no branch;
 //   - the blur keeps its arithmetic: 25 taps in row-major order,
 //     __fmul_rn/__fadd_rn, floor(acc + 0.5); each window byte becomes a float
 //     once (an exact byte permute into 2^23's mantissa, minus 2^23), and the
@@ -42,6 +39,7 @@
 namespace {
 
 using tpuslam::Taps;
+using tpuslam::byte_f;
 
 constexpr int kThreads = 128;
 constexpr int kRowsPerThread = 3;
@@ -52,24 +50,6 @@ constexpr int kLeft = 16;                                   // staged columns le
 constexpr int kSmemH = kTileH + 2 * kHalo;
 constexpr int kSmemW = kLeft + kTileW + 16;                 // 16-byte aligned on both sides
 constexpr int kWinRows = kRowsPerThread + 2 * kHalo;
-constexpr uint32_t kMsb = 0x80808080u;
-
-// Per byte, the most significant bit set where a >= b (unsigned).
-__device__ __forceinline__ uint32_t ge_u8x4(uint32_t a, uint32_t b) {
-  const uint32_t low = (a | kMsb) - (b & ~kMsb);  // msb: low 7 bits of a >= those of b
-  return (((a ^ b) & a) | (~(a ^ b) & low)) & kMsb;
-}
-
-// The 4 bytes of the 12-byte window `w` that start at byte s (0 <= s <= 8).
-__device__ __forceinline__ uint32_t bytes_at(const uint32_t (&w)[3], int s) {
-  return (s & 3) == 0 ? w[s >> 2] : __funnelshift_r(w[s >> 2], w[(s >> 2) + 1], 8 * (s & 3));
-}
-
-// Byte s of the window as a float, exactly: the byte in the mantissa of 2^23, minus 2^23.
-__device__ __forceinline__ float byte_f(const uint32_t (&w)[3], int s) {
-  return __fsub_rn(__uint_as_float(__byte_perm(w[s >> 2], 0x4B000000u, (s & 3) | 0x7440)),
-                   8388608.0f);
-}
 
 __global__ void __launch_bounds__(kThreads)
 frontend_kernel(const uint8_t* __restrict__ images, uint8_t* __restrict__ blur,
@@ -142,33 +122,7 @@ frontend_kernel(const uint8_t* __restrict__ images, uint8_t* __restrict__ blur,
     for (int q = 0; q < 8; ++q) fr[4][q] = byte_f(win[i + 5], q + 2);
 
     const uint32_t c4 = win[i + kHalo][1];
-    const uint32_t hi4 = __vaddus4(c4, t4);  // saturated: nothing is brighter than 255
-    const uint32_t lo4 = __vsubus4(c4, t4);  // nor darker than 0
-    uint32_t bright_lo = 0, bright_hi = 0, dark_lo = 0, dark_hi = 0;
-    uint32_t sad_even = 0, sad_odd = 0;      // pixels 0, 2 and 1, 3 in 16-bit lanes
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      int dx, dy;
-      tpuslam::circle(k, &dx, &dy);
-      const uint32_t nb = bytes_at(win[i + kHalo + dy], 4 + dx);
-      const uint32_t br = ~ge_u8x4(hi4, nb) & kMsb;  // nb > centre + threshold
-      const uint32_t dk = ~ge_u8x4(nb, lo4) & kMsb;  // nb < centre - threshold
-      // bit 7 of byte j -> bit k & 7 of byte j: a right shift by 7 - (k & 7),
-      // done as the high word of a product (the multiplier's pipe, not the ALU's)
-      const int m = k & 7;
-      const uint32_t br_k = m == 7 ? br : __umulhi(br, 1u << (25 + m));
-      const uint32_t dk_k = m == 7 ? dk : __umulhi(dk, 1u << (25 + m));
-      if (k < 8) {
-        bright_lo += br_k;
-        dark_lo += dk_k;
-      } else {
-        bright_hi += br_k;
-        dark_hi += dk_k;
-      }
-      const uint32_t ad = __vabsdiffu4(nb, c4);
-      sad_even += ad & 0x00FF00FFu;
-      sad_odd += (ad >> 8) & 0x00FF00FFu;
-    }
+    const tpuslam::Ring4 ring = tpuslam::fast4_ring(win + i, t4);
 
     const bool row_blur = y >= 2 && y < H - 2;
     const bool row_fast = y >= kHalo && y < H - kHalo;
@@ -176,21 +130,16 @@ frontend_kernel(const uint8_t* __restrict__ images, uint8_t* __restrict__ blur,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int x = xs + j;
-      // bytes (lo_j, hi_j, lo_j, hi_j): the pixel's 16-bit mask doubled to 32 bits
-      const uint32_t sel = j | ((j + 4) << 4) | (j << 8) | ((j + 4) << 12);
-      const bool is_corner =
-          row_fast & (x >= kHalo) & (x < W - kHalo) &
-          tpuslam::fast_decide(__byte_perm(bright_lo, bright_hi, sel),
-                               __byte_perm(dark_lo, dark_hi, sel), runs);
-      const uint32_t blurred =
-          tpuslam::blur5x5_at(taps, [&](int ddy, int ddx) { return fr[ddy + 2][j + 2 + ddx]; });
+      const bool is_corner = row_fast & (x >= kHalo) & (x < W - kHalo) &
+                             tpuslam::fast4_corner(ring, j, runs);
+      const uint32_t blurred = tpuslam::blur5x5_rows(taps, fr, j);
       const uint32_t bl = row_blur & (x >= 2) & (x < W - 2) ? blurred : (c4 >> (8 * j)) & 0xFFu;
       blur4 |= bl << (8 * j);
       corner4 |= (uint32_t)is_corner << (8 * j);
     }
 
-    const int sad[4] = {(int)(sad_even & 0xFFFFu), (int)(sad_odd & 0xFFFFu),
-                        (int)(sad_even >> 16), (int)(sad_odd >> 16)};
+    const int sad[4] = {tpuslam::fast4_sad(ring, 0), tpuslam::fast4_sad(ring, 1),
+                        tpuslam::fast4_sad(ring, 2), tpuslam::fast4_sad(ring, 3)};
     const size_t o = b * plane + (size_t)y * W + xs;
     if (vec_out && xs + 3 < W) {
       *reinterpret_cast<uint32_t*>(blur + o) = blur4;

@@ -174,15 +174,20 @@ class FeatureDetector:
             out.append((level, h_l, w_l))
         return out
 
-    def _pyramid_batch(self, images: torch.Tensor) -> tuple[KeypointSet, torch.Tensor]:
-        """Detect on every level (each resized from level 0), concatenated along K."""
+    def _level_capacities(self, levels: list[tuple[int, int, int]]) -> list[int]:
+        """Keypoint slots of each level: ∝ its area, summing exactly to ``max_keypoints``."""
         c = self.config
-        levels = self._feasible_levels(*images.shape[-2:])
-        # capacity ∝ level area, summing exactly to max_keypoints
         weights = [w_l * h_l for (_, h_l, w_l) in levels]
         total = float(sum(weights))
         caps = [max(32, int(round(c.max_keypoints * wt / total))) for wt in weights]
         caps[0] += c.max_keypoints - sum(caps)
+        return caps
+
+    def _pyramid_batch(self, images: torch.Tensor) -> tuple[KeypointSet, torch.Tensor]:
+        """Detect on every level (each resized from level 0), concatenated along K."""
+        c = self.config
+        levels = self._feasible_levels(*images.shape[-2:])
+        caps = self._level_capacities(levels)
         kp_parts: list[KeypointSet] = []
         desc_parts: list[torch.Tensor] = []
         for (level, h_l, w_l), cap in zip(levels, caps):
