@@ -32,7 +32,20 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    with ``nms_fused=False`` (24 of kernel 1, none of kernel 5), timed in
    turns (fused, kernel 1, kernel 1, fused) for frames/s of each; the
    kernels' device time a chunk is set against the timed chunk of either
-   path (``[main] kernels``, ``[pyramid] kernels``).
+   path (``[main] kernels``, ``[pyramid] kernels``);
+7. pnp — PnP tracking (``tracking="pnp"``) with ``configs/`` over the same
+   96 frames at batch 16, a warm-up pass and a timed pass: kernels 1-4 six
+   launches each, kernel 5 none; the trajectory gates of the VO paths; at
+   least 30% of the valid points the keyframe window observes seen in >= 2
+   keyframes; frames/s,
+   the shares of absolute PnP and of the RANSAC fallback, the map's
+   ``point_count``; then one chunk in parts (two-view stage, tracker) with
+   the tracker run on the card and on the CPU on the same inputs and
+   sample indices (integer fields identical, rotations within 1e-4,
+   positions within 1e-3), the tracker's share of
+   the chunk, device kernels a chunk (``torch.profiler``), and the time a
+   call of ``ransac_pnp`` and ``project_associate``, the two branches the
+   tracker takes only where a frame needs them.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -424,15 +437,23 @@ def phase_frontend(cfg_path: Path, frames: np.ndarray, nms_fused: bool) -> None:
         f"descriptors identical, max angle diff {angle_err:.2e} deg")
 
 
-def drive(pipeline, chunks: torch.Tensor, valid: torch.Tensor, seed: int):
-    """One pass over the chunks with the launch counters zeroed just before it."""
+def drive(pipeline, chunks: torch.Tensor, valid: torch.Tensor, seed: int, pnp: bool = False):
+    """One pass over the chunks with the launch counters zeroed just before it.
+
+    With ``pnp`` the pass is ``process_sequence_pnp``.  Returns (result,
+    seconds, launch counts, final state).
+    """
     from tpuslam_torch.kernels import launch_counts, reset_launch_counts
 
+    if pnp:
+        run, init = pipeline.process_sequence_pnp, pipeline.initial_pnp_state()
+    else:
+        run, init = pipeline.process_sequence, pipeline.initial_state()
     reset_launch_counts()
     t0 = time.perf_counter()
-    result, _ = pipeline.process_sequence(chunks, valid, pipeline.initial_state(), seed=seed)
+    result, state = run(chunks, valid, init, seed=seed)
     torch.cuda.synchronize()
-    return result, time.perf_counter() - t0, launch_counts()
+    return result, time.perf_counter() - t0, launch_counts(), state
 
 
 def check_launches(label: str, counts: dict, expected: dict) -> None:
@@ -467,6 +488,158 @@ def check_trajectory(label: str, result, run_s: float, card: str) -> float:
     if z_dominant < 0.9 or poses[9, 2, 3] <= 0:
         raise AssertionError(f"{label}: motion is not dominantly along +z")
     return fps
+
+
+def count_kernels(fn) -> int | None:
+    """Device kernels ``fn()`` launches, from ``torch.profiler`` (None where it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def pnp_chunk_inputs(pipeline, frames: torch.Tensor, valid: torch.Tensor, state, seed: int):
+    """One chunk's two-view outputs on the card and the tracker's arguments, as process_chunk_pnp
+    builds them; the sampler's place (index 6) is left to the caller."""
+    from tpuslam_torch.model.slam import PNP_HYPOTHESES
+
+    vo = state.vo
+    kps, _, match, mvalid, res, X_prev, X_cur, point_ok = pipeline._two_view_stage(
+        frames, valid.to(frames.device), vo, seed)
+    fids = [vo.frame_idx + i for i in range(frames.shape[0])]
+    args = (state.map, state.assoc, pipeline.K, vo.pose, fids, valid.to(frames.device), None,
+            res.R, res.t, res.success, kps.xy, match.query_idx, match.train_idx, mvalid, X_cur,
+            X_prev[..., 2], point_ok)
+    kw = dict(pnp_hypotheses=PNP_HYPOTHESES, gate_px=pipeline.config.map.assoc_gate_px,
+              min_cand_depth=pipeline.config.map.min_candidate_depth, gn_iters=pipeline.pnp_gn_iters)
+    return args, kw, pipeline._pnp_samples(fids, seed)
+
+
+def check_pnp_card_equals_cpu(args, kw, sampler) -> dict:
+    """The tracker on one chunk on the card and on the CPU, the same sample indices fed to both:
+    integer fields identical, rotations within 1e-4, positions within 1e-3.
+
+    (Not with ``freeze_map``, localization, off this path: its projection refresh is a
+    nearest-landmark argmin whose near-ties the two devices' last-bit differences break either way.)"""
+    from tpuslam_torch.model.tracking import pnp_track_chunk
+
+    drawn = {}
+
+    def record(b, valid):
+        drawn[b] = sampler(b, valid)
+        return drawn[b]
+
+    def replay(b, valid):
+        if b not in drawn:
+            raise AssertionError(f"[pnp] the CPU tracker asked for samples of frame {b}, the card did not")
+        return drawn[b].cpu()
+
+    card_args = list(args)
+    card_args[6] = record
+    g_res, g_map, g_assoc, _ = pnp_track_chunk(*card_args, **kw)
+    cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    cpu_args[0] = type(args[0])(*(x.cpu() for x in args[0]))
+    cpu_args[1] = type(args[1])(*(x.cpu() for x in args[1]))
+    cpu_args[6] = replay
+    c_res, c_map, c_assoc, _ = pnp_track_chunk(*cpu_args, **kw)
+    label = "[pnp] card == CPU"
+    for name in ("pnp_ok", "num_pnp_inliers", "num_assoc", "used_ransac", "point_count0",
+                 "kp_to_point", "kp_birth"):
+        g, c = getattr(g_res, name).cpu(), getattr(c_res, name)
+        if not torch.equal(g, c):
+            raise AssertionError(f"{label}: {name} differs at {int((g != c).sum())} entries")
+    for name in ("kf_id", "kf_valid", "point_valid", "point_birth", "obs_mask", "kf_count", "point_count"):
+        if not torch.equal(getattr(g_map, name).cpu(), getattr(c_map, name)):
+            raise AssertionError(f"{label}: map {name} differs")
+    if not torch.equal(g_assoc.kp_to_point.cpu(), c_assoc.kp_to_point):
+        raise AssertionError(f"{label}: association differs")
+    rot = float((g_res.poses[:, :3, :3].cpu() - c_res.poses[:, :3, :3]).abs().max())
+    pos = float((g_res.poses[:, :3, 3].cpu() - c_res.poses[:, :3, 3]).abs().max())
+    if rot > 1e-4 or pos > 1e-3:
+        raise AssertionError(f"{label}: poses differ by {rot} (rotation), {pos} (position)")
+    log(f"{label}: integer fields, map and association identical; rotation diff {rot:.2e}, position diff "
+        f"{pos:.2e}; absolute PnP on {int(c_res.pnp_ok.sum())} of {len(args[4])} frames, RANSAC on "
+        f"{len(drawn)}")
+    return {"rotation_diff": rot, "position_diff": pos, "ransac_frames": len(drawn)}
+
+
+def phase_pnp(camera, config_dir: Path, chunks: torch.Tensor, valid: torch.Tensor, card: str, uses) -> dict:
+    """PnP tracking (``tracking="pnp"``) with ``configs/`` at full width over the 96 frames."""
+    from tpuslam_torch.backend.pnp import ransac_pnp
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.model.slam import SlamPipeline
+    from tpuslam_torch.model.tracking import pnp_track_chunk, project_associate
+
+    pipe = SlamPipeline(camera, SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH), tracking="pnp",
+                        device="cuda")
+    n_chunks = chunks.shape[0]
+    drive(pipe, chunks, valid, seed=1, pnp=True)  # warm-up
+    result, run_s, counts, state = drive(pipe, chunks, valid, seed=0, pnp=True)
+    check_launches("pnp", counts, {**{k: n_chunks for k in uses}, "fused_frontend_nms_batch": 0})
+    fps = check_trajectory("pnp", result, run_s, card)
+    # The reference's check (>= 30% of valid points seen in >= 2 keyframes) holds over the points the
+    # 8-keyframe window still observes: a recycled keyframe slot takes its observations with it, so
+    # after 96 frames most points born early have none left.
+    n_obs = state.map.obs_mask.sum(dim=0)[state.map.point_valid].cpu().numpy()
+    observed = n_obs[n_obs > 0]
+    multi = float((observed >= 2).mean()) if observed.size else 0.0
+    absolute = float(result.pnp_absolute_ok.reshape(-1)[1:].float().mean())
+    ransac = float(result.pnp_used_ransac.reshape(-1)[1:].float().mean())
+    log(f"[pnp] map: point_count {int(state.map.point_count)}, {n_obs.size} valid points, {observed.size} "
+        f"observed in the window, {multi:.3f} of these with >= 2 views ({float((n_obs >= 2).mean()):.3f} of "
+        f"all valid points); absolute PnP on {absolute:.3f} and the RANSAC fallback on {ransac:.3f} of frames "
+        f"1..{N_FRAMES - 1}")
+    if observed.size <= 200 or multi < 0.3:
+        raise AssertionError(f"[pnp] only {multi:.3f} of {observed.size} observed map points have >= 2 views")
+
+    # One chunk (the second: the map is not empty) in parts: two-view stage, tracker; card == CPU.
+    st0 = pipe.initial_pnp_state()
+    _, st1 = pipe.process_chunk_pnp(chunks[0], valid[0], st0, seed=0)
+    args, kw, sampler = pnp_chunk_inputs(pipe, chunks[1], valid[1], st1, seed=0)
+    torch.cuda.synchronize()
+
+    def track():
+        return pnp_track_chunk(*args[:6], sampler, *args[7:], **kw)
+
+    t0 = time.perf_counter()
+    track()
+    torch.cuda.synchronize()
+    track_ms = 1e3 * (time.perf_counter() - t0)
+    chunk_ms = 1e3 * run_s / n_chunks
+    parity = check_pnp_card_equals_cpu(args, kw, sampler)
+    k_chunk = count_kernels(lambda: pipe.process_chunk_pnp(chunks[1], valid[1], st1, seed=0))
+    k_track = count_kernels(track)
+    # The two branch forms: the sync form (kept) runs RANSAC-PnP on the frames that need it; a
+    # select form would run it on all 16 frames.  RANSAC-PnP's time a call at the path's shapes:
+    # (the map's first M points against the matched pixels of the chunk's frame with most matches)
+    m = args[0]
+    b = int(torch.argmax(args[13].sum(-1)))
+    X = m.points[:args[13].shape[1]]
+    uv = args[10][b][torch.clamp_min(args[12][b], 0)]
+    ok = args[13][b]
+    idx = sampler(b, ok)
+    ransac_ms = time_ms(lambda: ransac_pnp(X, uv, ok, pipe.K, idx, num_hypotheses=64, min_inliers=12,
+                                           solver_sweeps=8, hyp_sweeps=6, lo_rounds=1, refine="gn"),
+                        reps=5, hold=False)
+    refresh_ms = time_ms(lambda: project_associate(m, args[3], pipe.K, uv, args[13][b], 0.2, 48.0),
+                         reps=5, hold=False)
+    rec = {"fps": fps, "chunk_ms": chunk_ms, "tracker_ms_one_chunk": track_ms,
+           "tracker_share": track_ms / chunk_ms, "device_kernels_per_chunk": k_chunk,
+           "device_kernels_tracker_per_chunk": k_track, "point_count": int(state.map.point_count),
+           "multiview_share": multi, "absolute_ok_share": absolute, "used_ransac_share": ransac,
+           "ransac_pnp_ms_per_call": ransac_ms, "project_associate_ms_per_call": refresh_ms,
+           "card_equals_cpu": parity, "launches": counts}
+    log(f"[pnp] {N_FRAMES} frames batch {BATCH}: {fps:.2f} frames/s, {chunk_ms:.2f} ms a chunk; tracker "
+        f"{track_ms:.2f} ms of one chunk ({100 * rec['tracker_share']:.1f}%); device kernels a chunk "
+        f"{k_chunk if k_chunk else 'not measured'} (tracker {k_track if k_track else 'not measured'}); "
+        f"ransac_pnp {ransac_ms:.3f} ms a call (a select form: x16 a chunk), project_associate "
+        f"{refresh_ms:.3f} ms a call; kernel launches a chunk "
+        f"{ {k: v / n_chunks for k, v in counts.items()} } on {card}")
+    return rec
 
 
 def main() -> int:
@@ -512,7 +685,7 @@ def main() -> int:
 
     # Main path: configs/, kernels 1-4.
     drive(pipeline, chunks, valid, seed=1)  # warm-up
-    result, run_s, main_counts = drive(pipeline, chunks, valid, seed=0)
+    result, run_s, main_counts, _ = drive(pipeline, chunks, valid, seed=0)
     check_launches("main", main_counts, {**{k: None for k in main_uses}, "fused_frontend_nms_batch": 0})
     fps = check_trajectory("main", result, run_s, card)
 
@@ -531,7 +704,7 @@ def main() -> int:
     pyr_fps = {True: [], False: []}
     pyr_counts = {}
     for fused in (True, False, False, True):  # in turns, against drift
-        result, run_s, counts = drive(pyramid[fused], chunks, valid, seed=0)
+        result, run_s, counts, _ = drive(pyramid[fused], chunks, valid, seed=0)
         label = f"pyramid nms_fused={fused}"
         if fused not in pyr_counts:
             check_launches(label, counts, expected[fused])
@@ -540,11 +713,17 @@ def main() -> int:
     log(f"[pyramid] {n_levels} levels, {N_FRAMES} frames batch {BATCH}: frames/s with kernel 5 "
         f"{pyr_fps[True]}, with kernel 1 + NMS {pyr_fps[False]} on {card}")
 
+    # PnP tracking: configs/ with tracking="pnp", kernels 1-4 in its two-view stage.
+    pnp = phase_pnp(camera, config_dir, chunks, valid, card, main_uses)
+
     for r in records:
         on_pyramid = r["name"] == "fused_frontend_nms_batch"
         r["path"] = "pyramid (configs/multiscale, nms_fused)" if on_pyramid else "main (configs/)"
         r["launches"] = (pyr_counts[True] if on_pyramid else main_counts)[r["name"]]
         r["launches_per_chunk"] = r["launches"] / n_chunks
+        r["launches_by_path"] = {"main": main_counts[r["name"]], "pyramid_nms_fused": pyr_counts[True][r["name"]],
+                                 "pyramid_kernel1": pyr_counts[False][r["name"]],
+                                 "pnp": pnp["launches"][r["name"]]}
     # the main path's kernel time per chunk, from the kernels phase, against its timed chunk
     chunk_ms = 1e3 * N_FRAMES / fps / n_chunks
     kernel_ms = sum(r["ms"] * r["launches_per_chunk"] for r in records if r["path"].startswith("main"))
@@ -569,7 +748,8 @@ def main() -> int:
     log(json.dumps({"kernels": records, "vo_fps": fps, "vo_frames": N_FRAMES, "batch": BATCH,
                     "main_chunk_ms": chunk_ms, "main_kernel_ms_per_chunk": kernel_ms,
                     "pyramid_chunk_ms": pyr_chunk_ms, "pyramid_kernel_ms_per_chunk": pyr_kernel_ms,
-                    "pyramid_fps_nms_fused": pyr_fps[True], "pyramid_fps_kernel1": pyr_fps[False]}))
+                    "pyramid_fps_nms_fused": pyr_fps[True], "pyramid_fps_kernel1": pyr_fps[False],
+                    "pnp": pnp}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -10,6 +10,12 @@ sums the matches in another order than the twin.  Kernels 1 and 5 also meet
 every one of the 65,536 bright and dark FAST circle patterns, through the
 one SWAR FAST they share; kernel 5 also runs at shapes off its tile, on
 rows and buffers that start at any byte, and on dense and empty images.
+
+The PnP tracking path holds no kernel, but its map writes and its tracker
+run on the card too: the map inserts and ``pnp_track_chunk`` on CUDA
+tensors must give what they give on CPU tensors (integers identical,
+poses to 1e-4 in rotation and 1e-3 in position), and a write with
+duplicate target slots must pick the first valid writer on the card.
 """
 
 from pathlib import Path
@@ -315,3 +321,111 @@ def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):  # contiguous out of the kernels' range
         kf.fused_frontend_batch(torch.zeros((1, 8, 8), dtype=torch.uint8, device=dev), threshold=20,
                                 contiguous=17, taps=torch.zeros((5, 5)))
+
+
+def _map_ops(dev, rng):
+    """A scripted run of map writes: ring wrap, recycled slots, duplicate observations, a disabled insert."""
+    from tpuslam_torch.backend import map as tmap
+
+    m = tmap.empty_map(3, 700, device=dev)
+    for i in range(6):
+        pts = torch.from_numpy(rng.normal(size=(600, 3)).astype(np.float32)).to(dev)
+        ok = torch.from_numpy(rng.random(600) > 0.4).to(dev)
+        m, slots = tmap.insert_points(m, pts, ok)
+        m, kf = tmap.insert_keyframe(m, i, torch.eye(3, device=dev) * (i + 1), torch.ones(3, device=dev),
+                                     torch.tensor(i != 3, device=dev))
+        dup = torch.cat([slots, slots[:200]])
+        uv = torch.from_numpy(rng.normal(size=(800, 2)).astype(np.float32)).to(dev)
+        m = tmap.add_observations(m, kf, dup, uv, torch.ones(800, dtype=torch.bool, device=dev))
+    return m
+
+
+def test_map_writes_card_equals_cpu(dev):
+    got = _map_ops(dev, np.random.default_rng(0))
+    want = _map_ops(torch.device("cpu"), np.random.default_rng(0))
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g.cpu(), w), name
+    assert int(got.point_count) > 700  # the ring wrapped
+
+
+def test_row_select_first_writer_on_card(dev):
+    """200,000 writers onto 50 rows: each row takes its first valid writer, not any writer."""
+    from tpuslam_torch.backend.map import apply_row_select, row_select
+
+    rng = np.random.default_rng(1)
+    slots = torch.from_numpy(rng.integers(-1, 52, 200_000)).to(dev)
+    valid = torch.from_numpy(rng.random(200_000) > 0.5).to(dev)
+    vals = torch.arange(200_000, dtype=torch.int32, device=dev) + 2**30
+    first, written = row_select(slots, valid, 50)
+    got = apply_row_select(first, written, vals).cpu().numpy()
+    s, v = slots.cpu().numpy(), valid.cpu().numpy()
+    for r in range(50):
+        writers = np.flatnonzero(v & (s == r))
+        assert got[r] == writers[0] + 2**30
+
+
+@pytest.mark.parametrize("freeze_map", [False, True])
+def test_pnp_track_chunk_card_equals_cpu(dev, freeze_map):
+    """Two frames against a 256-point map: a teleported seed (the RANSAC fallback, or with a frozen
+    map the projection refresh), then a healthy one."""
+    from tpuslam_torch.backend import map as tmap
+    from tpuslam_torch.backend.pnp import gumbel_sample_indices
+    from tpuslam_torch.model.tracking import pnp_track_chunk
+
+    rng = np.random.default_rng(3)
+    N, k_cap = 256, 512
+    K = np.asarray([[500.0, 0.0, 320.0], [0.0, 500.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
+    X = rng.uniform([-6, -4, 8], [6, 4, 20], (N, 3)).astype(np.float32)
+
+    def project(Xc):
+        pix = Xc @ K.T
+        return (pix[:, :2] / pix[:, 2:3]).astype(np.float32)
+
+    def yaw(deg):
+        a = np.deg2rad(deg)
+        return np.asarray([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]], np.float32)
+
+    centres = [np.asarray([0.6, 0.1, 1.2], np.float32), np.asarray([0.7, 0.1, 1.9], np.float32)]
+    xy = np.zeros((2, k_cap, 2), np.float32)
+    for f, (deg, C) in enumerate(zip((25.0, 27.0), centres)):
+        xy[f, :N] = project((X - C) @ yaw(deg))
+    T_prev = np.eye(4, dtype=np.float32)
+    T_prev[:3, :3] = yaw(-60.0)
+    T_prev[:3, 3] = [3.0, -2.0, 1.5]
+    idx = np.tile(np.arange(N, dtype=np.int32), (2, 1))
+    draws = [gumbel_sample_indices(torch.ones(N, dtype=torch.bool), 64, 6, torch.Generator().manual_seed(f))
+             for f in range(2)]
+
+    def run(d):
+        m = tmap.empty_map(8, 1024, device=d)
+        m, slots = tmap.insert_points(m, torch.from_numpy(X).to(d), torch.ones(N, dtype=torch.bool, device=d))
+        m, kf0 = tmap.insert_keyframe(m, 0, torch.eye(3, device=d), torch.zeros(3, device=d))
+        uv0 = torch.from_numpy(project(X)).to(d)
+        m = tmap.add_observations(m, kf0, slots, uv0, torch.ones(N, dtype=torch.bool, device=d))
+        assoc = tmap.empty_assoc(k_cap, device=d)
+        assoc = assoc._replace(
+            kp_to_point=torch.cat([slots, assoc.kp_to_point[N:]]),
+            kp_birth=torch.cat([m.point_birth[slots.long()], assoc.kp_birth[N:]]),
+            prev_kf_slot=kf0,
+            prev_xy=torch.cat([uv0, assoc.prev_xy[N:]]),
+        )
+        t = lambda a: torch.from_numpy(np.asarray(a)).to(d)  # noqa: E731
+        return pnp_track_chunk(
+            m, assoc, t(K), t(T_prev), [1, 2], t([True, True]), lambda b, valid: draws[b].to(d),
+            t(np.eye(3, dtype=np.float32)[None].repeat(2, 0)), t(np.zeros((2, 3), np.float32)),
+            t([False, False]), t(xy), t(idx), t(idx), t(np.ones((2, N), bool)),
+            t(np.zeros((2, N, 3), np.float32)), t(np.zeros((2, N), np.float32)), t(np.zeros((2, N), bool)),
+            freeze_map=freeze_map,
+        )
+
+    (g_res, g_map, g_assoc, _), (c_res, c_map, c_assoc, _) = run(dev), run(torch.device("cpu"))
+    if not freeze_map:
+        assert bool(c_res.used_ransac[0]) and bool(c_res.pnp_ok.all())
+    for name in ("pnp_ok", "num_pnp_inliers", "num_assoc", "used_ransac", "point_count0", "kp_to_point",
+                 "kp_birth"):
+        assert torch.equal(getattr(g_res, name).cpu(), getattr(c_res, name)), name
+    for name in ("kf_id", "kf_valid", "point_valid", "point_birth", "obs_mask", "kf_count", "point_count"):
+        assert torch.equal(getattr(g_map, name).cpu(), getattr(c_map, name)), name
+    assert torch.equal(g_assoc.kp_to_point.cpu(), c_assoc.kp_to_point)
+    assert float((g_res.poses[:, :3, :3].cpu() - c_res.poses[:, :3, :3]).abs().max()) <= 1e-4
+    assert float((g_res.poses[:, :3, 3].cpu() - c_res.poses[:, :3, 3]).abs().max()) <= 1e-3

@@ -1,15 +1,17 @@
-"""tpuslam_torch CLI — monocular VO over an image directory.
+"""tpuslam_torch CLI — monocular tracking over an image directory.
 
-The VO subset of ``tools/cli.py``::
+The VO and PnP-tracking subset of ``tools/cli.py``::
 
     python -m tpuslam_torch.cli -c configs -v tests/data/images -o traj.txt \\
-        [--batch-size 16] [--stats] [--device cpu] [--nms-fused]
+        [--tracking vo|pnp] [--batch-size 16] [--stats] [--device cpu] [--nms-fused]
 
 writes a KITTI-format trajectory (12 values per row).  It runs on the card
 unless ``--device cpu`` is given; without a card it fails.  ``--stats`` prints
 one JSON line with the frame count, wall time and pose statistics.
 ``-c configs/multiscale`` runs the 4-level image pyramid; ``--nms-fused``
 detects with kernel 5 (blur + FAST + NMS in one pass) where a level allows.
+``--tracking pnp`` tracks each frame against a persistent landmark map
+(``SlamPipeline.run_pnp``) instead of chaining scaled two-view poses.
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="stop after this many frames (0 = all)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda; pass cpu to run without a card)")
+    parser.add_argument("--tracking", choices=["vo", "pnp"], default="vo",
+                        help="vo: chained scaled two-view poses; pnp: absolute PnP against a landmark map")
     parser.add_argument("--nms-fused", action="store_true",
                         help="detect with the fused blur+FAST+NMS kernel where a level allows it")
     parser.add_argument("--stats", action="store_true", help="print run stats as JSON")
@@ -68,7 +72,9 @@ def main(argv: list[str] | None = None) -> int:
     config = SlamConfig.from_yaml_dir(
         cfg_dir, frame_skip=args.frame_skip, batch_size=args.batch_size
     )
-    pipeline = SlamPipeline(camera, config, device=args.device, nms_fused=args.nms_fused)
+    pipeline = SlamPipeline(
+        camera, config, tracking=args.tracking, device=args.device, nms_fused=args.nms_fused
+    )
     stream = FrameStream(args.stream, frame_skip=args.frame_skip)
     log.info("Stream %s: %d frames on %s", args.stream, stream.total_frames, args.device)
 
@@ -76,7 +82,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.max_frames:
         batches = _limited(batches, args.max_frames)
     t0 = time.perf_counter()
-    result = pipeline.run(batches)
+    result = (pipeline.run_pnp if args.tracking == "pnp" else pipeline.run)(batches)
     dt = time.perf_counter() - t0
     save_kitti_trajectory(result["poses"], args.output)
     log.info("Trajectory written to %s", args.output)
@@ -87,6 +93,7 @@ def main(argv: list[str] | None = None) -> int:
             "seconds": dt,
             "fps": n / dt if dt > 0 else 0.0,
             "device": str(pipeline.device),
+            "tracking": args.tracking,
             "pose_ok": int(np.asarray(result["pose_ok"]).sum()),
             "mean_matches": float(np.mean(result["num_matches"])) if n else 0.0,
             "mean_inliers": float(np.mean(result["num_inliers"])) if n else 0.0,

@@ -8,6 +8,8 @@ order — matches it.  Everything here is float32 with TF32 off.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -27,6 +29,18 @@ def _round_robin_schedule(n: int) -> list[list[tuple[int, int]]]:
     return rounds
 
 
+@functools.lru_cache(maxsize=None)
+def _schedule_indices(n: int, device: torch.device) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The round-robin schedule as (p, q) index tensors on ``device``, built once per (n, device)."""
+    return [
+        (
+            torch.tensor([p for p, _ in r], device=device),
+            torch.tensor([q for _, q in r], device=device),
+        )
+        for r in _round_robin_schedule(n)
+    ]
+
+
 def nullvec_jacobi(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
     """Right singular vector of the smallest singular value, batched.
 
@@ -39,13 +53,7 @@ def nullvec_jacobi(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
     A = A.clone()
     V = torch.eye(n, dtype=A.dtype, device=A.device).expand(*A.shape[:-2], n, n).clone()
     eps = torch.tensor(1e-30, dtype=A.dtype, device=A.device)
-    schedule = [
-        (
-            torch.tensor([p for p, _ in r], device=A.device),
-            torch.tensor([q for _, q in r], device=A.device),
-        )
-        for r in _round_robin_schedule(n)
-    ]
+    schedule = _schedule_indices(n, A.device)
     for _ in range(sweeps):
         for ps, qs in schedule:
             cp = A[..., ps]  # (..., m, G)
@@ -126,3 +134,29 @@ def orthonormalize_rotation(R: torch.Tensor, iters: int = 3) -> torch.Tensor:
         RtR = torch.matmul(R.transpose(-1, -2), R)
         R = torch.matmul(R, 1.5 * eye - 0.5 * RtR)
     return R
+
+
+def hat(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix of (..., 3) vectors: hat(v) @ x = v × x."""
+    zero = torch.zeros_like(v[..., 0])
+    return torch.stack(
+        [
+            torch.stack([zero, -v[..., 2], v[..., 1]], dim=-1),
+            torch.stack([v[..., 2], zero, -v[..., 0]], dim=-1),
+            torch.stack([-v[..., 1], v[..., 0], zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues exponential map (..., 3) → (..., 3, 3), Taylor-switched below θ² = 1e-8."""
+    theta2 = torch.sum(w * w, dim=-1)[..., None, None]
+    small = theta2 < 1e-8
+    theta2_safe = torch.where(small, 1.0, theta2)
+    theta = torch.sqrt(theta2_safe)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2_safe)
+    Kx = hat(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return eye + a * Kx + b * (Kx @ Kx)

@@ -1,21 +1,21 @@
-"""SlamPipeline, VO mode: the batched monocular visual-odometry pipeline.
+"""SlamPipeline: the batched monocular pipeline, in VO and PnP tracking modes.
 
-Port of ``tpuslam/model/slam.py`` (``VoState``, ``ChunkResult``,
-``initial_state``, ``_two_view_stage``, ``_process_chunk``,
-``process_sequence``, ``run``).  One chunk of B frames runs, in order:
+Port of ``tpuslam/model/slam.py``.  One chunk of B frames runs, in order:
 undistort gather; detector (kernels 1-3, or 5, 2 and 3, on each pyramid
-level); matching of consecutive pairs;
-two-view RANSAC (kernel 4); triangulation; depth-ratio scale propagation;
-relative transforms chained into global poses.  The carry between chunks
-holds the last frame's features, its global pose and its keypoint depths.
+level); matching of consecutive pairs; two-view RANSAC (kernel 4);
+triangulation.  Then, with ``tracking="vo"``, depth-ratio scale
+propagation and relative transforms chained into global poses (the carry
+holds the last frame's features, its global pose and its keypoint depths);
+with ``tracking="pnp"``, the per-frame tracker of ``model/tracking.py``
+against a persistent landmark map (the carry adds the map and the landmark
+association; ``process_chunk_pnp``, ``process_sequence_pnp``, ``run_pnp``).
 
 Random draws depend only on (seed, global frame index), never on where
-chunk boundaries fall.  ``draw_fn(frame_idx, n_valid, H, S)`` may supply
-them (a test passes the reference package's draws); by default each frame's
-(H, S) ranks come from the pipeline's ``torch.Generator`` reseeded with
-``(seed, frame_idx)``.
-
-Not ported yet: PnP tracking (``tracking="pnp"``) and ``with_features``.
+chunk boundaries fall, in two streams: the two-view ranks and the RANSAC-PnP
+samples.  ``draw_fn(frame_idx, n_valid, H, S)`` and ``pnp_draw_fn(frame_idx,
+valid) -> (H, 6)`` may supply them (a test passes the reference package's
+draws); by default each comes from the pipeline's ``torch.Generator``
+reseeded from ``(seed, frame_idx)`` and the stream.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ from typing import Callable, Iterator, NamedTuple
 import numpy as np
 import torch
 
+from tpuslam_torch.backend.map import AssocState, MapState, empty_assoc, empty_map
+from tpuslam_torch.backend.pnp import gumbel_sample_indices
 from tpuslam_torch.common.camera import Camera, undistort_batch
 from tpuslam_torch.config.schema import SlamConfig
 from tpuslam_torch.frontend.detector import FeatureDetector
@@ -37,6 +39,14 @@ from tpuslam_torch.frontend.pose import (
 )
 
 DrawFn = Callable[[int, torch.Tensor, int, int], torch.Tensor]
+PnpDrawFn = Callable[[int, torch.Tensor], torch.Tensor]
+PNP_HYPOTHESES = 64  # RANSAC-PnP fallback hypotheses (the reference tracker's default)
+_PNP_STREAM = 0x9E3779B97F4A7C15  # xor-ed into the seed of the RANSAC-PnP draws
+
+
+def _stream_seed(seed: int, frame_idx: int, stream: int = 0) -> int:
+    """64-bit generator seed of one frame's draws in one stream."""
+    return (((seed & 0xFFFFFFFF) << 32) | (frame_idx & 0xFFFFFFFF)) ^ stream
 
 
 class VoState(NamedTuple):
@@ -56,6 +66,36 @@ class ChunkResult(NamedTuple):
     num_matches: torch.Tensor  # (B,) int32
     num_inliers: torch.Tensor  # (B,) int32
     pose_ok: torch.Tensor  # (B,) bool
+    # with_features=True (for the full SLAM system):
+    kps_xy: torch.Tensor | None = None  # (B, K, 2)
+    kps_valid: torch.Tensor | None = None  # (B, K)
+    desc: torch.Tensor | None = None  # (B, K, D) uint8
+    m_query: torch.Tensor | None = None  # (B, M) int32 — into the previous frame's keypoints
+    m_train: torch.Tensor | None = None  # (B, M) int32 — into the current frame's keypoints
+    m_valid: torch.Tensor | None = None  # (B, M)
+    points3d: torch.Tensor | None = None  # (B, M, 3) — current-camera coordinates, global scale
+    point_ok: torch.Tensor | None = None  # (B, M)
+    # PnP tracking (see model/tracking.py):
+    pnp_used_ransac: torch.Tensor | None = None  # (B,) the RANSAC-PnP fallback ran
+    pnp_absolute_ok: torch.Tensor | None = None  # (B,) the pose was solved against the map
+    pnp_point_count0: torch.Tensor | None = None  # (B,) int32 — landmark-birth watermark
+    pnp_kp_to_point: torch.Tensor | None = None  # (B, K) int32 — map slot per keypoint
+    pnp_kp_birth: torch.Tensor | None = None  # (B, K) int32 — its allocation guard
+
+
+class PnpState(NamedTuple):
+    """Carry of PnP tracking: the VO carry, the persistent map and the landmark association."""
+
+    vo: VoState
+    map: MapState
+    assoc: AssocState
+
+
+def _stack_results(results: list[ChunkResult]) -> ChunkResult:
+    """Chunk results stacked along a leading chunk axis (absent fields stay None)."""
+    return ChunkResult(*(
+        None if parts[0] is None else torch.stack(parts) for parts in zip(*results)
+    ))
 
 
 def _invert_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -105,11 +145,17 @@ def _scatter_max(idx: torch.Tensor, val: torch.Tensor, size: int) -> torch.Tenso
 
 
 class SlamPipeline:
-    """Batched monocular visual odometry (``tracking="vo"``) on ``device`` (the card by default).
+    """Batched monocular tracking on ``device`` (the card by default).
 
-    ``nms_fused`` is passed to the detector: kernel 5 (blur + FAST + NMS in
-    one pass) on every level whose shape allows it, instead of kernel 1 and
-    the separate NMS.  The keypoints are the same either way.
+    ``tracking``: ``"vo"`` chains scaled two-view poses; ``"pnp"`` tracks
+    each frame absolutely against a landmark map of ``map_window``
+    keyframes and ``max_map_points`` points (``pnp_gn_iters`` motion-model
+    Gauss-Newton rounds a frame; ``freeze_map`` for localization against a
+    loaded map).  ``with_features`` adds the features, matches and
+    triangulations to every ``ChunkResult``.  ``nms_fused`` is passed to the
+    detector: kernel 5 (blur + FAST + NMS in one pass) on every level whose
+    shape allows it, instead of kernel 1 and the separate NMS.  The
+    keypoints are the same either way.
     """
 
     def __init__(
@@ -121,15 +167,25 @@ class SlamPipeline:
         draw_fn: DrawFn | None = None,
         with_features: bool = False,
         nms_fused: bool = False,
+        map_window: int = 8,
+        max_map_points: int = 8192,
+        pnp_gn_iters: int = 3,
+        freeze_map: bool = False,
+        pnp_draw_fn: PnpDrawFn | None = None,
     ):
-        if tracking != "vo":
-            raise NotImplementedError(f"tracking={tracking!r} is not ported yet (only 'vo')")
-        if with_features:
-            raise NotImplementedError("with_features=True (the full SLAM system) is not ported yet")
+        if tracking not in ("vo", "pnp"):
+            raise ValueError(f"unknown tracking mode {tracking!r}")
         self.camera = camera
         self.config = config
+        self.tracking = tracking
         self.device = torch.device(device)
         self.draw_fn = draw_fn
+        self.pnp_draw_fn = pnp_draw_fn
+        self.with_features = with_features
+        self.map_window = map_window
+        self.max_map_points = max_map_points
+        self.pnp_gn_iters = pnp_gn_iters
+        self.freeze_map = freeze_map
         self.detector = FeatureDetector(config.detector, device=self.device, nms_fused=nms_fused)
         self.K = torch.as_tensor(camera.K, dtype=torch.float32).to(self.device)
         self.undistort_idx, self.undistort_valid = camera.device_undistort_map(self.device)
@@ -156,20 +212,37 @@ class SlamPipeline:
             prev_depth_valid=torch.zeros((k,), dtype=torch.bool, device=dev),
         )
 
+    def initial_pnp_state(self) -> PnpState:
+        return PnpState(
+            vo=self.initial_state(),
+            map=empty_map(self.map_window, self.max_map_points, self.device),
+            assoc=empty_assoc(self.config.detector.max_keypoints, self.device),
+        )
+
     # --- random draws ----------------------------------------------------------
-    def _draws(self, fids: list[int], n_valid: torch.Tensor, seed: int) -> torch.Tensor:
-        """(B, H, S) ranks, each frame's from (seed, its global index) alone."""
-        pcfg = self.config.pose
-        H, S = pcfg.num_hypotheses, pcfg.sample_size
+    def _draws(self, fids: list[int], n_valid: torch.Tensor, seed: int, H: int) -> torch.Tensor:
+        """(B, H, S) two-view ranks, each frame's from (seed, its global index) alone."""
+        S = self.config.pose.sample_size
         out = []
         for i, f in enumerate(fids):
             if self.draw_fn is not None:
                 r = self.draw_fn(f, n_valid[i], H, S)
             else:
-                self._generator.manual_seed(((seed & 0xFFFFFFFF) << 32) | (f & 0xFFFFFFFF))
+                self._generator.manual_seed(_stream_seed(seed, f))
                 r = draw_ranks(n_valid[i : i + 1], H, S, self._generator)[0]
             out.append(torch.as_tensor(r, device=self.device).to(torch.int64))
         return torch.stack(out)
+
+    def _pnp_samples(self, fids: list[int], seed: int):
+        """The tracker's RANSAC-PnP sampler: (H, 6) indices of chunk frame b from (seed, its index)."""
+
+        def samples(b: int, valid: torch.Tensor) -> torch.Tensor:
+            if self.pnp_draw_fn is not None:
+                return torch.as_tensor(self.pnp_draw_fn(fids[b], valid), device=self.device)
+            self._generator.manual_seed(_stream_seed(seed, fids[b], _PNP_STREAM))
+            return gumbel_sample_indices(valid, PNP_HYPOTHESES, 6, self._generator)
+
+        return samples
 
     # --- the chunk program -----------------------------------------------------
     def _two_view_stage(self, frames: torch.Tensor, frame_valid: torch.Tensor, state: VoState, seed: int):
@@ -199,12 +272,17 @@ class SlamPipeline:
         pts2 = torch.gather(kps.xy, 1, t[..., None].expand(*t.shape, 2))
         mvalid = match.valid & pair_ok[:, None]
 
+        # In PnP mode the two-view pose only seeds the tracker, so it may run
+        # at the smaller SeedNumHypotheses budget.
+        n_hyp = pcfg.num_hypotheses
+        if self.tracking == "pnp" and pcfg.seed_num_hypotheses:
+            n_hyp = min(pcfg.seed_num_hypotheses, pcfg.num_hypotheses)
         fids = [state.frame_idx + i for i in range(B)]
-        draws = self._draws(fids, mvalid.sum(dim=-1), seed)
+        draws = self._draws(fids, mvalid.sum(dim=-1), seed, n_hyp)
         res = estimate_relative_pose(
             pts1, pts2, mvalid, self.K,
             draws=draws,
-            num_hypotheses=pcfg.num_hypotheses,
+            num_hypotheses=n_hyp,
             sample_size=pcfg.sample_size,
             inlier_threshold_px=pcfg.inlier_threshold_px,
             min_matches=pcfg.min_matches,
@@ -223,19 +301,33 @@ class SlamPipeline:
             & (z_cur > mapc.min_triangulation_depth)
             & res.success[:, None]
         )
-        return kps, desc, match, mvalid, res, z_prev, z_cur, point_ok
+        return kps, desc, match, mvalid, res, X_prev, X_cur, point_ok
+
+    def _to_device(self, frames, frame_valid) -> tuple[torch.Tensor, torch.Tensor, int]:
+        """Frames and mask on the pipeline's device, and the count of real frames."""
+        frame_valid = torch.as_tensor(frame_valid, dtype=torch.bool)
+        n_real = int(frame_valid.sum())  # host knowledge when the mask comes from the host
+        return torch.as_tensor(frames).to(self.device), frame_valid.to(self.device), n_real
+
+    def _features(self, kps, desc, match, mvalid, points3d, point_ok) -> dict:
+        if not self.with_features:
+            return {}
+        return dict(
+            kps_xy=kps.xy, kps_valid=kps.valid, desc=desc,
+            m_query=match.query_idx, m_train=match.train_idx, m_valid=mvalid,
+            points3d=points3d, point_ok=point_ok,
+        )
 
     def process_chunk(
         self, frames: torch.Tensor, frame_valid: torch.Tensor, state: VoState, seed: int = 0
     ) -> tuple[ChunkResult, VoState]:
-        """One chunk: (B, H, W) uint8 frames, (B,) bool validity → (result, new carry)."""
-        frame_valid = torch.as_tensor(frame_valid, dtype=torch.bool)
-        n_real = int(frame_valid.sum())  # host knowledge when the mask comes from the host
-        frames = torch.as_tensor(frames).to(self.device)
-        frame_valid = frame_valid.to(self.device)
-        kps, desc, match, mvalid, res, z_prev, z_cur, point_ok = self._two_view_stage(
+        """One VO chunk: (B, H, W) uint8 frames, (B,) bool validity → (result, new carry)."""
+        frames, frame_valid, n_real = self._to_device(frames, frame_valid)
+        kps, desc, match, mvalid, res, X_prev, X_cur, point_ok = self._two_view_stage(
             frames, frame_valid, state, seed
         )
+        z_prev = X_prev[..., 2]
+        z_cur = X_cur[..., 2]
 
         # Monocular scale: depth ratios of keypoints shared by consecutive pairs.
         K_cap = kps.valid.shape[1]
@@ -276,8 +368,54 @@ class SlamPipeline:
             num_matches=mvalid.sum(dim=-1, dtype=torch.int32),
             num_inliers=res.num_inliers,
             pose_ok=res.success,
+            **self._features(kps, desc, match, mvalid, X_cur * cumscale[:, None, None], point_ok),
         )
         return result, new_state
+
+    def process_chunk_pnp(
+        self, frames: torch.Tensor, frame_valid: torch.Tensor, state: PnpState, seed: int = 0
+    ) -> tuple[ChunkResult, PnpState]:
+        """One PnP-tracking chunk: the two-view stage, then the tracker frame by frame."""
+        from tpuslam_torch.model.tracking import pnp_track_chunk
+
+        frames, frame_valid, n_real = self._to_device(frames, frame_valid)
+        vo = state.vo
+        kps, desc, match, mvalid, res, X_prev, X_cur, point_ok = self._two_view_stage(
+            frames, frame_valid, vo, seed
+        )
+        fids = [vo.frame_idx + i for i in range(frames.shape[0])]
+        track, m_out, a_out, _ = pnp_track_chunk(
+            state.map, state.assoc, self.K, vo.pose, fids, frame_valid, self._pnp_samples(fids, seed),
+            res.R, res.t, res.success, kps.xy, match.query_idx, match.train_idx, mvalid,
+            X_cur, X_prev[..., 2], point_ok,
+            pnp_hypotheses=PNP_HYPOTHESES,
+            gate_px=self.config.map.assoc_gate_px,
+            min_cand_depth=self.config.map.min_candidate_depth,
+            gn_iters=self.pnp_gn_iters,
+            freeze_map=self.freeze_map,
+        )
+        last = max(n_real - 1, 0)
+        new_vo = vo._replace(  # prev_depth is unused in PnP mode
+            prev_kps=KeypointSet(*(a[last] for a in kps)),
+            prev_desc=desc[last],
+            prev_exists=vo.prev_exists | (n_real > 0),
+            pose=track.poses[last],
+            frame_idx=vo.frame_idx + n_real,
+        )
+        result = ChunkResult(
+            poses=track.poses,
+            num_matches=mvalid.sum(dim=-1, dtype=torch.int32),
+            num_inliers=torch.where(track.pnp_ok, track.num_pnp_inliers, res.num_inliers),
+            pose_ok=track.pnp_ok | res.success,
+            # current-camera coordinates at the metric baseline the tracker applied
+            **self._features(kps, desc, match, mvalid, X_cur * track.scale[:, None, None], point_ok),
+            pnp_used_ransac=track.used_ransac,
+            pnp_absolute_ok=track.pnp_ok,
+            pnp_point_count0=track.point_count0,
+            pnp_kp_to_point=track.kp_to_point,
+            pnp_kp_birth=track.kp_birth,
+        )
+        return result, PnpState(vo=new_vo, map=m_out, assoc=a_out)
 
     def process_sequence(
         self,
@@ -286,26 +424,33 @@ class SlamPipeline:
         state: VoState,
         seed: int = 0,
     ) -> tuple[ChunkResult, VoState]:
-        """Run every chunk in order; results are stacked along a leading chunk axis."""
+        """Run every VO chunk in order; results are stacked along a leading chunk axis."""
         results = []
         for frames, valid in zip(chunks, chunk_valid):
             result, state = self.process_chunk(frames, valid, state, seed)
             results.append(result)
-        return ChunkResult(*(torch.stack(parts) for parts in zip(*results))), state
+        return _stack_results(results), state
 
-    def run(
+    def process_sequence_pnp(
         self,
-        frame_batches: Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]],
+        chunks: torch.Tensor,  # (C, B, H, W) uint8
+        chunk_valid: torch.Tensor,  # (C, B) bool
+        state: PnpState,
         seed: int = 0,
-        initial_state: VoState | None = None,
-    ) -> dict:
-        """Consume ``FrameStream.batches()`` → trajectory + per-frame stats (numpy)."""
-        state = initial_state if initial_state is not None else self.initial_state()
+    ) -> tuple[ChunkResult, PnpState]:
+        """Run every PnP-tracking chunk in order; results stacked along a leading chunk axis."""
+        results = []
+        for frames, valid in zip(chunks, chunk_valid):
+            result, state = self.process_chunk_pnp(frames, valid, state, seed)
+            results.append(result)
+        return _stack_results(results), state
+
+    def _drive(self, chunk_fn, frame_batches, seed: int, state) -> dict:
         out: dict[str, list[np.ndarray]] = {
             "poses": [], "num_matches": [], "num_inliers": [], "pose_ok": []
         }
         for frames, _stamps, valid in frame_batches:
-            result, state = self.process_chunk(
+            result, state = chunk_fn(
                 torch.from_numpy(np.ascontiguousarray(frames)), torch.from_numpy(valid), state, seed
             )
             n = int(valid.sum())
@@ -316,3 +461,24 @@ class SlamPipeline:
             for k, v in out.items()
         }
         return {**merged, "state": state}
+
+    def run(
+        self,
+        frame_batches: Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]],
+        seed: int = 0,
+        initial_state: VoState | None = None,
+    ) -> dict:
+        """Consume ``FrameStream.batches()`` → VO trajectory + per-frame stats (numpy)."""
+        state = initial_state if initial_state is not None else self.initial_state()
+        return self._drive(self.process_chunk, frame_batches, seed, state)
+
+    def run_pnp(
+        self,
+        frame_batches: Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]],
+        seed: int = 0,
+        initial_state: PnpState | None = None,
+    ) -> dict:
+        """PnP tracking over ``FrameStream.batches()`` → trajectory, stats, ``map`` and ``state``."""
+        state = initial_state if initial_state is not None else self.initial_pnp_state()
+        out = self._drive(self.process_chunk_pnp, frame_batches, seed, state)
+        return {**out, "map": out["state"].map}

@@ -13,12 +13,23 @@ Pipeline keys: those, plus ``K``, ``undistort_idx`` and ``undistort_valid``.
 The image pyramid (``NumLevels > 1``, ``configs/multiscale``) adds no
 arrays: its resize weights are a function of the level shapes alone, so
 the same keys carry a multi-level detector across unchanged.
+
+The PnP tracker's state crosses the same way: ``map_state_from_numpy``,
+``assoc_state_from_numpy`` and ``pnp_state_from_numpy`` take the
+reference's ``MapState``, ``AssocState`` and ``PnpState`` (named tuples, or
+mappings of their field names, holding array-likes) and return the port's,
+so both packages can start from one map.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
+
 import numpy as np
 import torch
+
+from tpuslam_torch.backend.map import AssocState, MapState
+from tpuslam_torch.frontend.fast import KeypointSet
 
 _DETECTOR_DTYPES = {
     "p1": torch.int32,
@@ -55,3 +66,67 @@ def detector_arrays_from_numpy(arrays: dict) -> dict[str, torch.Tensor]:
 def pipeline_arrays_from_numpy(arrays: dict) -> dict[str, torch.Tensor]:
     """Pipeline constants (detector keys + ``K``, undistort map) → CPU tensors."""
     return _convert(arrays, {**_DETECTOR_DTYPES, **_PIPELINE_DTYPES})
+
+
+_MAP_DTYPES = {
+    "kf_R": torch.float32,
+    "kf_t": torch.float32,
+    "kf_id": torch.int32,
+    "kf_valid": torch.bool,
+    "points": torch.float32,
+    "point_valid": torch.bool,
+    "point_birth": torch.int32,
+    "obs_uv": torch.float32,
+    "obs_mask": torch.bool,
+    "kf_count": torch.int32,
+    "point_count": torch.int32,
+}
+_ASSOC_DTYPES = {
+    "kp_to_point": torch.int32,
+    "kp_birth": torch.int32,
+    "prev_kf_slot": torch.int32,
+    "prev_xy": torch.float32,
+}
+_VO_DTYPES = {
+    "prev_desc": torch.uint8,
+    "prev_exists": torch.bool,
+    "pose": torch.float32,
+    "prev_depth": torch.float32,
+    "prev_depth_valid": torch.bool,
+}
+_KPS_DTYPES = {"xy": torch.float32, "response": torch.float32, "angle": torch.float32, "valid": torch.bool}
+
+
+def _fields(x) -> Mapping:
+    return x._asdict() if hasattr(x, "_asdict") else x
+
+
+def _state(x, dtypes: dict, device) -> dict[str, torch.Tensor]:
+    return {k: v.to(device) for k, v in _convert(_fields(x), dtypes).items()}
+
+
+def map_state_from_numpy(m, device: torch.device | str = "cpu") -> MapState:
+    """The reference's ``MapState`` → the port's, on ``device``."""
+    return MapState(**_state(m, _MAP_DTYPES, device))
+
+
+def assoc_state_from_numpy(a, device: torch.device | str = "cpu") -> AssocState:
+    """The reference's ``AssocState`` → the port's, on ``device``."""
+    return AssocState(**_state(a, _ASSOC_DTYPES, device))
+
+
+def pnp_state_from_numpy(state, device: torch.device | str = "cpu"):
+    """The reference's ``PnpState`` (VO carry, map, association) → the port's, on ``device``."""
+    from tpuslam_torch.model.slam import PnpState, VoState
+
+    fields = _fields(state)
+    vo = _fields(fields["vo"])
+    return PnpState(
+        vo=VoState(
+            prev_kps=KeypointSet(**_state(vo["prev_kps"], _KPS_DTYPES, device)),
+            frame_idx=int(np.asarray(vo["frame_idx"])),
+            **_state(vo, _VO_DTYPES, device),
+        ),
+        map=map_state_from_numpy(fields["map"], device),
+        assoc=assoc_state_from_numpy(fields["assoc"], device),
+    )
