@@ -45,7 +45,22 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    positions within 1e-3), the tracker's share of
    the chunk, device kernels a chunk (``torch.profiler``), and the time a
    call of ``ransac_pnp`` and ``project_associate``, the two branches the
-   tracker takes only where a frame needs them.
+   tracker takes only where a frame needs them;
+8. slam, slam-pnp — ``SlamSystem(vocabulary=None).run_sequence`` (loop closure
+   off) at the reference's defaults (window 8, 4096 points, BA every 4
+   keyframes, 4 LM steps over 512 active points) over the same 96 frames, in
+   VO mode and in PnP mode, a warm-up pass and a timed pass: kernels 1-4
+   six launches each, kernel 5 none; ``pose_ok`` on >= 90% of frames 1..95;
+   BA on every chunk from the first that was due, each run with final cost
+   <= initial x 1.001; >= 50% of the points the final window observes seen
+   in >= 2 keyframes; TF32 off.  Then one chunk in parts: the batched map
+   fold against the per-frame scan on the card on that chunk's inputs
+   (integer fields identical, floats bit for bit; VO), and ``bundle_adjust``
+   on the card against the CPU on the same map (float32: initial cost rtol
+   1e-5, final 1e-2, poses 1e-3; float64: 1e-8); frames/s and ms a chunk
+   against the main path's, BA ms a call and the fold's ms a chunk
+   (synchronised on either side), device kernels a chunk
+   (``torch.profiler``) and the BA cost ratios.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -642,6 +657,175 @@ def phase_pnp(camera, config_dir: Path, chunks: torch.Tensor, valid: torch.Tenso
     return rec
 
 
+def check_tf32_off() -> None:
+    """BA and the map run in full float32: TF32 must be off, as PyTorch leaves it."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on: the SLAM back end computes in full float32")
+
+
+def synced_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of ``fn()`` with the card synchronised on either side."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def expected_ba_chunks(pose_ok: np.ndarray, interval: int) -> list[int]:
+    """The chunks BA runs on, by the reference's rule: keyframes since the last run reach the interval."""
+    kf = pose_ok.reshape(-1, BATCH).copy()
+    kf[0, 0] = True  # frame 0 is a keyframe without a pose
+    since, chunks = 0, []
+    for c, n in enumerate(kf.sum(axis=1)):
+        since += int(n)
+        if since >= interval:
+            chunks.append(c)
+            since = 0
+    return chunks
+
+
+def check_ba_card_equals_cpu(label: str, m, K) -> dict:
+    """``bundle_adjust`` at the system's settings on the card and on the CPU, on one map."""
+    from tpuslam_torch.backend.ba import bundle_adjust
+
+    kw = dict(iterations=4, active_points=512)
+    floats = ("kf_R", "kf_t", "points", "obs_uv")
+    out = {}
+    # (initial cost, final cost, poses): float32's final cost is held to 1%, not 1e-3, for a finding (ROADMAP
+    # Queue 3 F5): its LM steps move by far more than an ulp between summation orders (card vs CPU on the
+    # second [slam] chunk: final costs 1.31e-3 apart, poses 4.07e-4; H100 80GB HBM3, 700 W); float64 holds
+    # the algorithm.
+    for dtype, tol in ((torch.float32, (1e-5, 1e-2, 1e-3)), (torch.float64, (1e-8, 1e-8, 1e-8))):
+        mg = m._replace(**{k: getattr(m, k).to(dtype) for k in floats})
+        mc = type(m)(*(x.cpu() for x in mg))
+        g = bundle_adjust(mg, K, **kw)
+        c = bundle_adjust(mc, K.cpu(), **kw)
+        init = abs(float(g.initial_cost) / float(c.initial_cost) - 1)
+        final = abs(float(g.final_cost) / float(c.final_cost) - 1)
+        pose = max(float((g.map.kf_R.cpu() - c.map.kf_R).abs().max()), float((g.map.kf_t.cpu() - c.map.kf_t).abs().max()))
+        name = str(dtype).replace("torch.", "")
+        log(f"[{label}] bundle_adjust card vs CPU, {name}: initial cost {float(g.initial_cost):.6f} / "
+            f"{float(c.initial_cost):.6f} (rel {init:.2e}), final {float(g.final_cost):.6f} / "
+            f"{float(c.final_cost):.6f} (rel {final:.2e}), poses {pose:.2e}")
+        if init > tol[0] or final > tol[1] or pose > tol[2]:
+            raise AssertionError(f"[{label}] bundle_adjust on the card differs from the CPU ({name})")
+        out[name] = {"initial_rel": init, "final_rel": final, "pose_diff": pose,
+                     "card_costs": [float(g.initial_cost), float(g.final_cost)],
+                     "cpu_costs": [float(c.initial_cost), float(c.final_cost)]}
+    return out
+
+
+def check_fold_batched_equals_scan(label: str, args: tuple, kw: dict) -> dict:
+    """The two map folds on one chunk's inputs on the card: integer fields identical, floats bit for bit."""
+    from tpuslam_torch.backend.map import update_map_chunk, update_map_chunk_batched
+
+    mb, ab = update_map_chunk_batched(*args, **kw)
+    ms, as_ = update_map_chunk(*args, **kw)
+    for got, want in ((mb, ms), (ab, as_)):
+        for name, g, w in zip(got._fields, got, want):
+            if not torch.equal(g, w):
+                diff = float((g.double() - w.double()).abs().max())
+                raise AssertionError(f"[{label}] batched fold != scan fold: {name} (max diff {diff})")
+    new = int(mb.point_count) - int(args[0].point_count)
+    log(f"[{label}] map fold on one chunk's inputs: batched == per-frame scan on the card, integer and bool "
+        f"fields identical, floats bit for bit; {new} new points, {int(mb.obs_mask.sum())} observations")
+    return {"identical": True, "new_points": new}
+
+
+def phase_slam(camera, config_dir: Path, frames_np: np.ndarray, card: str, uses, tracking: str,
+               main_chunk_ms: float) -> dict:
+    """SlamSystem (loop closure off) at the reference's defaults over the 96 frames."""
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.model.system import SlamSystem
+
+    label = "slam" if tracking == "vo" else "slam-pnp"
+    check_tf32_off()
+    system = SlamSystem(camera, SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH), vocabulary=None,
+                        tracking=tracking, device="cuda")
+    n_chunks = N_FRAMES // BATCH
+    system.run_sequence(frames_np, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = system.run_sequence(frames_np, seed=0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launches(label, counts, {**{k: n_chunks for k in uses}, "fused_frontend_nms_batch": 0})
+    poses, pose_ok = out["poses"].astype(np.float64), out["pose_ok"]
+    if not np.isfinite(poses).all():
+        raise AssertionError(f"[{label}] non-finite poses")
+    ok_frac = float(pose_ok[1:].mean())
+    if ok_frac < 0.9:
+        raise AssertionError(f"[{label}] pose_ok on only {ok_frac:.3f} of frames")
+    ran = [e["frame_id"] // BATCH for e in out["ba_events"]]
+    want = expected_ba_chunks(pose_ok, system.ba_interval)
+    if ran != want or not want or ran != list(range(want[0], n_chunks)):
+        raise AssertionError(f"[{label}] BA ran on chunks {ran}, expected every chunk from the first due: {want}")
+    ratios = [e["final_cost"] / e["initial_cost"] for e in out["ba_events"]]
+    if any(e["final_cost"] > e["initial_cost"] * 1.001 for e in out["ba_events"]):
+        raise AssertionError(f"[{label}] a BA run raised the cost: {out['ba_events']}")
+    m = out["map"]
+    n_obs = m.obs_mask.sum(dim=0)[m.point_valid].cpu().numpy()
+    observed = n_obs[n_obs > 0]
+    multi = float((observed >= 2).mean()) if observed.size else 0.0
+    if observed.size <= 100 or multi < 0.5:
+        raise AssertionError(f"[{label}] only {multi:.3f} of {observed.size} observed points have >= 2 views")
+    fps = N_FRAMES / run_s
+    chunk_ms = 1e3 * run_s / n_chunks
+    log(f"[{label}] {N_FRAMES} frames batch {BATCH}: {fps:.2f} frames/s, {chunk_ms:.2f} ms a chunk (main path "
+        f"{main_chunk_ms:.2f} ms in this call); pose_ok {ok_frac:.3f}; BA on chunks {ran}, cost ratios "
+        f"{[round(r, 4) for r in ratios]}; point_count {int(m.point_count)}, {observed.size} points observed in "
+        f"the window, {multi:.3f} with >= 2 views; z at frame 95 {poses[-1, 2, 3]:.3f} on {card}")
+
+    # One chunk (the second) in parts, from the state after the first.
+    dev = system.device
+    frames = torch.from_numpy(frames_np).to(dev).reshape(n_chunks, BATCH, *frames_np.shape[1:])
+    valid = torch.ones((n_chunks, BATCH), dtype=torch.bool)
+    carry, _ = system._step(system.initial_carry(), frames[0], valid[0], 0)
+    rec = {"fps": fps, "chunk_ms": chunk_ms, "main_chunk_ms": main_chunk_ms, "pose_ok_share": ok_frac,
+           "ba_chunks": ran, "ba_cost_ratios": ratios, "ba_events": out["ba_events"],
+           "point_count": int(m.point_count), "observed_points": int(observed.size), "multiview_share": multi,
+           "launches": counts}
+    K = system._K
+    if tracking == "vo":
+        vo, m0, a0, _ = carry
+        result, _ = system.pipeline.process_chunk(frames[1], valid[1], vo, 0)
+        fids = vo.frame_idx + torch.arange(BATCH, dtype=torch.int32, device=dev)
+        args = (m0, a0, K, fids, torch.ones(BATCH, dtype=torch.bool, device=dev), result.poses,
+                result.pose_ok, result.kps_xy, result.m_query, result.m_train, result.m_valid,
+                result.points3d, result.point_ok)
+        kw = dict(gate_px=system.config.map.assoc_gate_px, min_cand_depth=system.config.map.min_candidate_depth)
+        from tpuslam_torch.backend.map import update_map_chunk, update_map_chunk_batched
+
+        rec["fold_check"] = check_fold_batched_equals_scan(label, args, kw)
+        rec["fold_ms"] = synced_ms(lambda: update_map_chunk_batched(*args, **kw))
+        rec["fold_scan_ms"] = synced_ms(lambda: update_map_chunk(*args, **kw))
+        rec["fold_device_kernels"] = count_kernels(lambda: update_map_chunk_batched(*args, **kw))
+        ba_map = update_map_chunk_batched(*args, **kw)[0]
+    else:
+        ba_map = carry[0].map
+    rec["ba_card_vs_cpu"] = check_ba_card_equals_cpu(label, ba_map, K)
+    rec["ba_ms"] = synced_ms(lambda: system._bundle_adjust(ba_map))
+    rec["ba_device_kernels"] = count_kernels(lambda: system._bundle_adjust(ba_map))
+    rec["step_ms"] = synced_ms(lambda: system._step(carry, frames[1], valid[1], 0), reps=3)
+    rec["device_kernels_per_chunk"] = count_kernels(lambda: system._step(carry, frames[1], valid[1], 0))
+    rec["ba_share"] = rec["ba_ms"] / rec["step_ms"]
+    rec["fold_share"] = rec.get("fold_ms", 0.0) / rec["step_ms"]
+    log(f"[{label}] one chunk synchronised {rec['step_ms']:.2f} ms: BA {rec['ba_ms']:.3f} ms a call "
+        f"({100 * rec['ba_share']:.1f}%, {rec['ba_device_kernels']} device kernels)"
+        + (f", map fold {rec['fold_ms']:.3f} ms ({100 * rec['fold_share']:.1f}%, {rec['fold_device_kernels']} "
+           f"device kernels; the per-frame scan {rec['fold_scan_ms']:.3f} ms)" if tracking == "vo" else "")
+        + f"; device kernels a chunk {rec['device_kernels_per_chunk']} on {card}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -716,6 +900,11 @@ def main() -> int:
     # PnP tracking: configs/ with tracking="pnp", kernels 1-4 in its two-view stage.
     pnp = phase_pnp(camera, config_dir, chunks, valid, card, main_uses)
 
+    # The SLAM back end (loop closure off): VO, then PnP tracking, kernels 1-4 in the two-view stage.
+    main_chunk_ms = 1e3 * N_FRAMES / fps / n_chunks
+    slam = {tracking: phase_slam(camera, config_dir, frames_np, card, main_uses, tracking, main_chunk_ms)
+            for tracking in ("vo", "pnp")}
+
     for r in records:
         on_pyramid = r["name"] == "fused_frontend_nms_batch"
         r["path"] = "pyramid (configs/multiscale, nms_fused)" if on_pyramid else "main (configs/)"
@@ -723,9 +912,11 @@ def main() -> int:
         r["launches_per_chunk"] = r["launches"] / n_chunks
         r["launches_by_path"] = {"main": main_counts[r["name"]], "pyramid_nms_fused": pyr_counts[True][r["name"]],
                                  "pyramid_kernel1": pyr_counts[False][r["name"]],
-                                 "pnp": pnp["launches"][r["name"]]}
+                                 "pnp": pnp["launches"][r["name"]],
+                                 "slam": slam["vo"]["launches"][r["name"]],
+                                 "slam_pnp": slam["pnp"]["launches"][r["name"]]}
     # the main path's kernel time per chunk, from the kernels phase, against its timed chunk
-    chunk_ms = 1e3 * N_FRAMES / fps / n_chunks
+    chunk_ms = main_chunk_ms
     kernel_ms = sum(r["ms"] * r["launches_per_chunk"] for r in records if r["path"].startswith("main"))
     log(f"[main] kernels {kernel_ms:.4f} ms of a {chunk_ms:.2f} ms chunk "
         f"({100 * kernel_ms / chunk_ms:.2f}%)")
@@ -749,7 +940,7 @@ def main() -> int:
                     "main_chunk_ms": chunk_ms, "main_kernel_ms_per_chunk": kernel_ms,
                     "pyramid_chunk_ms": pyr_chunk_ms, "pyramid_kernel_ms_per_chunk": pyr_kernel_ms,
                     "pyramid_fps_nms_fused": pyr_fps[True], "pyramid_fps_kernel1": pyr_fps[False],
-                    "pnp": pnp}))
+                    "pnp": pnp, "slam": slam["vo"], "slam_pnp": slam["pnp"]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

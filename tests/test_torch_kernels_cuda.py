@@ -16,6 +16,13 @@ run on the card too: the map inserts and ``pnp_track_chunk`` on CUDA
 tensors must give what they give on CPU tensors (integers identical,
 poses to 1e-4 in rotation and 1e-3 in position), and a write with
 duplicate target slots must pick the first valid writer on the card.
+
+The SLAM back end holds no kernel either: on the card the batched map fold
+must equal the per-frame scan (integers identical, floats bit for bit) with
+the point ring recycling, ``bundle_adjust`` must agree with itself on the
+CPU (float64: 1e-8; float32: costs rtol 1e-3, poses 1e-3), and neither the
+fold nor a fixed-step BA may sync with the host
+(``torch.cuda.set_sync_debug_mode("error")``).
 """
 
 from pathlib import Path
@@ -429,3 +436,145 @@ def test_pnp_track_chunk_card_equals_cpu(dev, freeze_map):
     assert torch.equal(g_assoc.kp_to_point.cpu(), c_assoc.kp_to_point)
     assert float((g_res.poses[:, :3, :3].cpu() - c_res.poses[:, :3, :3]).abs().max()) <= 1e-4
     assert float((g_res.poses[:, :3, 3].cpu() - c_res.poses[:, :3, 3]).abs().max()) <= 1e-3
+
+
+# --- the SLAM back end: map folds and bundle adjustment ---------------------------
+
+
+def _rodrigues(w: np.ndarray) -> np.ndarray:
+    th = float(np.linalg.norm(w))
+    k = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / max(th, 1e-12)
+    return np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+
+
+def _fold_chunks(rng, n_chunks=5, B=6, n_land=40, Kp=48):
+    """Synthetic fold inputs with match chains and wrong matches (numpy, no JAX)."""
+    Kc = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    X = rng.uniform([-6, -4, 8], [6, 4, 24], size=(n_land, 3))
+    perms = np.stack([rng.permutation(Kp)[:n_land] for _ in range(n_chunks * B)])
+    chunks = []
+    for c in range(n_chunks):
+        ch = dict(frame_ids=np.arange(c * B, (c + 1) * B, dtype=np.int32), kf_mask=np.ones(B, bool),
+                  pose_ok=np.ones(B, bool), poses=np.zeros((B, 4, 4), np.float32),
+                  kps_xy=np.zeros((B, Kp, 2), np.float32), m_query=np.full((B, n_land), -1, np.int32),
+                  m_train=np.full((B, n_land), -1, np.int32), m_valid=np.zeros((B, n_land), bool),
+                  points3d_cur=np.zeros((B, n_land, 3), np.float32), point_ok=np.zeros((B, n_land), bool))
+        for i in range(B):
+            f = c * B + i
+            Rw = _rodrigues(rng.normal(size=3) * 0.01)
+            C = np.array([0.2 * f, 0.05 * np.sin(f), 0.1 * f])
+            ch["poses"][i] = np.eye(4)
+            ch["poses"][i][:3, :3] = Rw
+            ch["poses"][i][:3, 3] = C
+            cam = (X - C) @ Rw
+            pix = cam @ Kc.T
+            ch["kps_xy"][i][perms[f]] = pix[:, :2] / pix[:, 2:] + rng.normal(size=(n_land, 2)) * 0.3
+            if f == 0:
+                continue
+            q = perms[f - 1].copy()
+            bad = rng.random(n_land) < 0.15
+            q[bad] = perms[f - 1][rng.integers(0, n_land, int(bad.sum()))]
+            ch["m_query"][i], ch["m_train"][i] = q, perms[f]
+            ch["m_valid"][i] = rng.random(n_land) < 0.9
+            ch["points3d_cur"][i] = cam + rng.normal(size=cam.shape) * 0.01
+            ch["point_ok"][i] = rng.random(n_land) < 0.75
+        chunks.append(ch)
+    return chunks, Kc.astype(np.float32)
+
+
+def _states_equal(a, b) -> None:
+    for name, x, y in zip(a._fields, a, b):
+        assert torch.equal(x, y), name
+
+
+def test_map_folds_batched_equals_scan_on_card(dev):
+    """Five chunks into a 160-point ring (it wraps), window 3: the two folds agree bit for bit
+    on the card, and the card agrees with the CPU."""
+    from tpuslam_torch.backend import map as tmap
+
+    chunks, Kc = _fold_chunks(np.random.default_rng(7))
+
+    def run(d, fold):
+        m, a = tmap.empty_map(3, 160, device=d), tmap.empty_assoc(48, device=d)
+        K = torch.from_numpy(Kc).to(d)
+        states = []
+        for ch in chunks:
+            m, a = fold(m, a, K, **{k: torch.from_numpy(v).to(d) for k, v in ch.items()})
+            states.append((m, a))
+        return states
+
+    scan = run(dev, tmap.update_map_chunk)
+    batched = run(dev, tmap.update_map_chunk_batched)
+    cpu = run(torch.device("cpu"), tmap.update_map_chunk_batched)
+    for (ms, as_), (mb, ab), (mc, ac) in zip(scan, batched, cpu):
+        _states_equal(mb, ms)
+        _states_equal(ab, as_)
+        _states_equal(tmap.MapState(*(x.cpu() for x in mb)), mc)
+    assert int(batched[-1][0].point_count) > 160
+
+
+def _ba_window(d, dtype=torch.float32):
+    """Four keyframes observing 200 points with 0.5 px noise, perturbed, on device ``d``."""
+    from tpuslam_torch.backend import map as tmap
+
+    rng = np.random.default_rng(9)
+    Kc = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    X = rng.uniform([-4, -3, 6], [4, 3, 18], size=(200, 3))
+    m = tmap.empty_map(8, 512, device=d)
+    slots = []
+    for i in range(4):
+        R = _rodrigues(rng.normal(size=3) * 0.05)
+        t = np.array([0.8 * i, 0.0, 0.0]) + rng.normal(size=3) * 0.05
+        uv = (X @ R.T + t) @ Kc.T
+        uv = uv[:, :2] / uv[:, 2:] + rng.normal(size=(200, 2)) * 0.5
+        if i:
+            R = _rodrigues(rng.normal(size=3) * 0.02) @ R
+            t = t + rng.normal(size=3) * 0.1
+        m, s = tmap.insert_keyframe(m, i, torch.tensor(R, dtype=torch.float32, device=d),
+                                    torch.tensor(t, dtype=torch.float32, device=d))
+        slots.append((s, uv))
+    X0 = torch.tensor(X + rng.normal(size=X.shape) * 0.05, dtype=torch.float32, device=d)
+    m, pslots = tmap.insert_points(m, X0, torch.ones(200, dtype=torch.bool, device=d))
+    for s, uv in slots:
+        m = tmap.add_observations(m, s, pslots, torch.tensor(uv, dtype=torch.float32, device=d),
+                                  torch.ones(200, dtype=torch.bool, device=d))
+    m = m._replace(**{k: getattr(m, k).to(dtype) for k in ("kf_R", "kf_t", "points", "obs_uv")})
+    return m, torch.tensor(Kc, dtype=torch.float32, device=d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_bundle_adjust_card_equals_cpu(dev, dtype):
+    from tpuslam_torch.backend.ba import bundle_adjust
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    got = bundle_adjust(*_ba_window(dev, dtype), iterations=6, active_points=256)
+    want = bundle_adjust(*_ba_window(torch.device("cpu"), dtype), iterations=6, active_points=256)
+    f64 = dtype == torch.float64
+    torch.testing.assert_close(got.initial_cost.cpu(), want.initial_cost, rtol=1e-9 if f64 else 1e-5, atol=0)
+    torch.testing.assert_close(got.final_cost.cpu(), want.final_cost, rtol=1e-9 if f64 else 1e-3, atol=0)
+    tol = 1e-8 if f64 else 1e-3
+    torch.testing.assert_close(got.map.kf_R.cpu(), want.map.kf_R, rtol=0, atol=tol)
+    torch.testing.assert_close(got.map.kf_t.cpu(), want.map.kf_t, rtol=0, atol=tol)
+    assert float(got.final_cost) < 0.5 * float(got.initial_cost)
+
+
+def test_fold_and_fixed_step_ba_do_not_sync(dev):
+    """The batched fold, the scan fold and a fixed-step BA run with host syncs made errors."""
+    from tpuslam_torch.backend import map as tmap
+    from tpuslam_torch.backend.ba import bundle_adjust
+
+    chunks, Kc = _fold_chunks(np.random.default_rng(3), n_chunks=2)
+    args = [{k: torch.from_numpy(v).to(dev) for k, v in ch.items()} for ch in chunks]
+    K = torch.from_numpy(Kc).to(dev)
+    window = _ba_window(dev)
+    torch.cuda.synchronize()
+    for fold in (tmap.update_map_chunk_batched, tmap.update_map_chunk):
+        m, a = tmap.empty_map(4, 512, device=dev), tmap.empty_assoc(48, device=dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for ch in args:
+                m, a = fold(m, a, K, **ch)
+            ba = bundle_adjust(*window, iterations=4, active_points=128)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert int(m.kf_count) == 12 and float(ba.final_cost) < float(ba.initial_cost)

@@ -24,6 +24,7 @@ import torch
 from tpuslam_torch.backend.map import (
     AssocState,
     MapState,
+    _row,
     add_observations,
     apply_row_select,
     insert_keyframe,
@@ -61,11 +62,6 @@ def _pose_from_rt(R_cw: torch.Tensor, t_cw: torch.Tensor) -> torch.Tensor:
 def _project(Xc: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     pix = Xc @ K.T
     return pix[:, :2] / torch.clamp_min(pix[:, 2:3], 1e-9)
-
-
-def _row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """``x[i]`` for a 0-d index tensor, without a host sync."""
-    return x.index_select(0, i.reshape(1).to(torch.int64))[0]
 
 
 def project_associate(

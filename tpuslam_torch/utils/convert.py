@@ -18,7 +18,10 @@ The PnP tracker's state crosses the same way: ``map_state_from_numpy``,
 ``assoc_state_from_numpy`` and ``pnp_state_from_numpy`` take the
 reference's ``MapState``, ``AssocState`` and ``PnpState`` (named tuples, or
 mappings of their field names, holding array-likes) and return the port's,
-so both packages can start from one map.
+so both packages can start from one map.  ``fold_inputs_from_numpy`` takes
+the arguments of a chunk fold (``update_map_chunk``'s, ``frame_ids`` to
+``point_ok``), and ``sequence_result_to_numpy`` turns either package's
+``SlamSystem.run_sequence`` output into numpy for comparison.
 """
 
 from __future__ import annotations
@@ -130,3 +133,39 @@ def pnp_state_from_numpy(state, device: torch.device | str = "cpu"):
         map=map_state_from_numpy(fields["map"], device),
         assoc=assoc_state_from_numpy(fields["assoc"], device),
     )
+
+
+_FOLD_DTYPES = {
+    "frame_ids": torch.int32,
+    "kf_mask": torch.bool,
+    "poses": torch.float32,
+    "pose_ok": torch.bool,
+    "kps_xy": torch.float32,
+    "m_query": torch.int32,
+    "m_train": torch.int32,
+    "m_valid": torch.bool,
+    "points3d_cur": torch.float32,
+    "point_ok": torch.bool,
+}
+
+
+def fold_inputs_from_numpy(inputs, device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
+    """A chunk's fold arguments (``frame_ids`` … ``point_ok``, array-likes) → the port's tensors."""
+    return _state(inputs, _FOLD_DTYPES, device)
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def sequence_result_to_numpy(out: dict) -> dict:
+    """A ``run_sequence`` output (either package's) with arrays, and the map's fields, as numpy."""
+    conv = {}
+    for k, v in out.items():
+        if k == "map":
+            conv[k] = {name: _numpy(f) for name, f in _fields(v).items()}
+        elif k in ("loops", "ba_events", "pose_graph_applied", "db"):
+            conv[k] = v
+        else:
+            conv[k] = _numpy(v)
+    return conv
