@@ -60,7 +60,25 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    1e-5, final 1e-2, poses 1e-3; float64: 1e-8); frames/s and ms a chunk
    against the main path's, BA ms a call and the fold's ms a chunk
    (synchronised on either side), device kernels a chunk
-   (``torch.profiler``) and the BA cost ratios.
+   (``torch.profiler``) and the BA cost ratios;
+9. slam-lc, slam-lc-pnp — full SLAM with loop closure:
+   ``SlamSystem(vocabulary="configs/vocabulary_tree.npz").run_sequence`` at
+   the reference's defaults (``configs/loop_closure.yml``: VerifyBudget 4,
+   512 keyframes, redundancy eviction; relocalization budget 2; the pose
+   graph) over the same 96 frames, which revisit every place, in VO and in
+   PnP mode, a warm-up pass and a timed pass: kernels 1-4 six launches
+   each, kernel 5 none; ``pose_ok`` on >= 90% of frames 1..95; at least one
+   verified loop and the pose graph applied.  Then on the card against the
+   CPU, given the same draws: ``LoopClosure.process_chunk`` on a full-width
+   chunk with loop candidates (integer fields identical, BoW 1e-6, R 1e-4,
+   t 1e-3), and relocalization on a chunk with two noise-blinded frames
+   (``_reloc_chunk`` / ``_reloc_chunk_pnp``: flags identical, poses 1e-4 /
+   1e-3), with the host syncs each makes counted; the loop-closure stage's
+   ms and device kernels a chunk, relocalization's ms, and the pose graph's
+   ms on the run's keyframes; once, kernel 4 at relocalization's shape (2
+   frames x 1024 five-point samples x 10 candidates, 1024 matches; masked
+   candidates hold NaN) against its twin at rtol 1e-5 on the unmasked rows,
+   and the pose graph's PCG on a 300-node drift graph, card against CPU.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -189,9 +207,10 @@ def int_mm_all_bins(patches, bins, weights, got) -> float:
     return time_ms(lambda: torch._int_mm(a, w_all))
 
 
-def msac_inputs(pipeline, blur: torch.Tensor, kps) -> tuple[torch.Tensor, torch.Tensor]:
+def msac_inputs(pipeline, blur: torch.Tensor, kps, operand: bool = True):
     """Kernel 4's (E, P) as the main path builds them: descriptors of the 16 frames
-    matched pair by pair, 1024 eight-point hypotheses a pair, the (9, 5M) operand."""
+    matched pair by pair, 1024 eight-point hypotheses a pair, the (9, 5M) operand.
+    With ``operand=False``: the normalised matches (x1, x2), their mask and the threshold."""
     from tpuslam_torch.common.geometry import normalize_points
     from tpuslam_torch.frontend.matcher import match_descriptors
     from tpuslam_torch.frontend.pose import _eight_point_rows, _solve_e_from_rows, draw_ranks
@@ -210,6 +229,9 @@ def msac_inputs(pipeline, blur: torch.Tensor, kps) -> tuple[torch.Tensor, torch.
     pts2 = torch.gather(kps2.xy, 1, ti[..., None].expand(-1, -1, 2))
     K = pipeline.K
     x1, x2 = normalize_points(K, pts1), normalize_points(K, pts2)
+    focal = 0.5 * (K[0, 0] + K[1, 1])
+    if not operand:
+        return x1, x2, valid, (pipeline.config.pose.inlier_threshold_px / focal) ** 2
     H = pipeline.config.pose.num_hypotheses
     gen = torch.Generator(device=blur.device).manual_seed(0)
     draws = draw_ranks(valid.sum(-1), H, 8, gen)
@@ -217,7 +239,6 @@ def msac_inputs(pipeline, blur: torch.Tensor, kps) -> tuple[torch.Tensor, torch.
     sample = torch.gather(rank_to_idx, 1, draws.reshape(BATCH, -1))
     rows = torch.gather(_eight_point_rows(x1, x2), 1, sample[..., None].expand(-1, -1, 9))
     E = _solve_e_from_rows(rows.reshape(BATCH, H, 8, 9), project=False, sweeps=3).reshape(BATCH, H, 9)
-    focal = 0.5 * (K[0, 0] + K[1, 1])
     return E, kp.build_msac_operand(x1, x2, valid, (1.0 / focal) ** 2)
 
 
@@ -334,6 +355,7 @@ def phase_kernels(pipeline, frames: torch.Tensor) -> list[dict]:
     rec["library_product_note"] = ("torch.bmm(E, P) in full float32 (cuBLAS): the 45-term products "
                                    "alone, written out as (B, H, 5M); the port never calls it")
     log(f"[kernels] msac_scores: same bits twice; torch.bmm(E, P) {rec['library_ms_product']:.4f} ms")
+    rec["reloc_shape"] = msac_reloc_shape(pipeline, blur, kps)
     check_ragged(blur)
     return records
 
@@ -795,7 +817,7 @@ def phase_slam(camera, config_dir: Path, frames_np: np.ndarray, card: str, uses,
            "launches": counts}
     K = system._K
     if tracking == "vo":
-        vo, m0, a0, _ = carry
+        vo, m0, a0, _, _ = carry
         result, _ = system.pipeline.process_chunk(frames[1], valid[1], vo, 0)
         fids = vo.frame_idx + torch.arange(BATCH, dtype=torch.int32, device=dev)
         args = (m0, a0, K, fids, torch.ones(BATCH, dtype=torch.bool, device=dev), result.poses,
@@ -823,6 +845,347 @@ def phase_slam(camera, config_dir: Path, frames_np: np.ndarray, card: str, uses,
         + (f", map fold {rec['fold_ms']:.3f} ms ({100 * rec['fold_share']:.1f}%, {rec['fold_device_kernels']} "
            f"device kernels; the per-frame scan {rec['fold_scan_ms']:.3f} ms)" if tracking == "vo" else "")
         + f"; device kernels a chunk {rec['device_kernels_per_chunk']} on {card}")
+    return rec
+
+
+
+def msac_reloc_shape(pipeline, blur: torch.Tensor, kps) -> dict:
+    """Kernel 4 at relocalization's shape: 2 pairs x 1024 five-point samples x 10 candidates against
+    1024 matches, on the main path's matches; masked candidates hold NaN (the first of each pair is
+    set so).  The unmasked rows against the twin at rtol 1e-5, then times and the bound."""
+    from tpuslam_torch.frontend.fivepoint import fivepoint_essential
+    from tpuslam_torch.frontend.pose import draw_ranks
+    from tpuslam_torch.kernels import pose as kp
+
+    x1, x2, valid, thr = msac_inputs(pipeline, blur, kps, operand=False)
+    x1, x2, valid = x1[:2], x2[:2], valid[:2]
+    gen = torch.Generator(device=blur.device).manual_seed(3)
+    ranks = draw_ranks(valid.sum(-1), 1024, 5, gen)
+    rank_to_idx = torch.argsort((~valid).to(torch.int8), dim=-1, stable=True)
+    idx = torch.gather(rank_to_idx, 1, ranks.reshape(2, -1))[..., None].expand(-1, -1, 2)
+    E, ok = fivepoint_essential(torch.gather(x1, 1, idx).reshape(2, 1024, 5, 2),
+                                torch.gather(x2, 1, idx).reshape(2, 1024, 5, 2))
+    E = E.reshape(2, 10240, 9).contiguous()
+    ok = ok.reshape(2, 10240).clone()
+    E[:, 0] = torch.nan
+    ok[:, 0] = False
+    n_nan = int((~torch.isfinite(E).all(-1)).sum())
+    P = kp.build_msac_operand(x1, x2, valid, thr)
+    got = kp.msac_scores(E, P)
+    want = kp.msac_scores_reference(E, P)
+    err = require_msac_close("msac_scores at relocalization's shape (unmasked rows)", got[ok], want[ok])
+    if not torch.isfinite(got[ok]).all():
+        raise AssertionError("msac_scores: a NaN row reached an unmasked one")
+    work = kp.msac_work(2, 10240, P.shape[-1] // 5)
+    rec = {"shape": [2, 10240, P.shape[-1] // 5], "max_abs_err": err, "valid_candidates": int(ok.sum()),
+           "nan_rows": n_nan, "ms": time_ms(lambda: kp.msac_scores(E, P)),
+           "plain_ms": time_ms(lambda: kp.msac_scores_reference(E, P), reps=5),
+           "bound_ms": work.bound_us() / 1e3, "bound_by": work.bound_by()}
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    log(f"[kernels] msac_scores at relocalization's shape {tuple(rec['shape'])}: {rec['valid_candidates']} "
+        f"valid candidates, {n_nan} NaN rows masked after the kernel; unmasked rows within rtol {RTOL_MSAC} "
+        f"(max_abs_err {err}); kernel {rec['ms']:.4f} ms, twin {rec['plain_ms']:.4f} ms, bound "
+        f"{1e3 * rec['bound_ms']:.2f} us ({rec['bound_by']}), {100 * rec['bound_share']:.1f}% of bound")
+    return rec
+
+
+def count_syncs(fn):
+    """(result, host syncs ``fn`` made, {"file:line": count}): the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``, each put at the innermost line of this
+    repository on the Python stack when it was raised."""
+    import collections
+    import traceback
+    import warnings
+
+    where = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):  # not the mode switch's own notice
+            ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(str(REPO))]
+            site = ours[-1] if ours else traceback.FrameSummary(filename, lineno, "")
+            where[f"{Path(site.filename).name}:{site.lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(where.values()), dict(where)
+
+
+def svd_site() -> str:
+    """"pose.py:<line>" of the port's one ``torch.linalg.svd`` call, which syncs on the card."""
+    import inspect
+
+    from tpuslam_torch.frontend import pose
+
+    lines, start = inspect.getsourcelines(pose._svd)
+    return f"pose.py:{start + next(i for i, line in enumerate(lines) if 'torch.linalg.svd' in line)}"
+
+
+def require_one_read(label: str, stage: str, sync_at: dict, allowed: str | None = None) -> None:
+    """The stage syncs with the host once (its predicate read), besides ``allowed`` sites."""
+    other = {k: v for k, v in sync_at.items() if k != allowed}
+    if sum(other.values()) != 1:
+        raise AssertionError(f"[{label}] {stage}: host syncs beyond its one read: {sync_at}")
+
+
+def to_cpu(x):
+    """A tensor, or a named tuple of tensors (None fields kept), on the CPU."""
+    if torch.is_tensor(x):
+        return x.cpu()
+    return type(x)(*(None if f is None else f.cpu() for f in x))
+
+
+def recorder(store: dict, draw):
+    """A draw hook of ``SlamSystem`` (lc_draw_fn / reloc_draw_fn) that keeps what it draws by frame."""
+    def hook(frame_idx, *args):
+        store[frame_idx] = draw(frame_idx, *args)
+        return store[frame_idx]
+    return hook
+
+
+def replayer(store: dict):
+    def hook(frame_idx, *args):
+        if frame_idx not in store:
+            raise AssertionError(f"the CPU asked for draws of frame {frame_idx}, the card did not")
+        got = store[frame_idx]
+        return tuple(x.cpu() for x in got) if isinstance(got, tuple) else got.cpu()
+    return hook
+
+
+def lc_draw(frame_idx, valid):
+    from tpuslam_torch.backend.pnp import gumbel_sample_indices
+
+    gen = torch.Generator(device=valid.device).manual_seed(10_000 + frame_idx)
+    return gumbel_sample_indices(valid, 512, 6, gen)
+
+
+def reloc_draw(frame_idx, pnp_valid, n_valid):
+    from tpuslam_torch.backend.pnp import gumbel_sample_indices
+    from tpuslam_torch.frontend.pose import draw_ranks
+
+    gen = torch.Generator(device=pnp_valid.device).manual_seed(20_000 + frame_idx)
+    samples = gumbel_sample_indices(pnp_valid, 512, 6, gen)
+    return samples, draw_ranks(torch.tensor([n_valid], device=pnp_valid.device), 1024, 5, gen)[0]
+
+
+def check_lc_card_equals_cpu(label, system, cpu_system, db, fids, kf_enabled, result, m) -> dict:
+    """``_lc_chunk`` (mp from the chunk, process_chunk) on the card and on the CPU, the same samples."""
+    store = {}
+    system.lc_draw_fn, cpu_system.lc_draw_fn = recorder(store, lc_draw), replayer(store)
+    fids_d = torch.tensor(fids, dtype=torch.int32, device="cuda")
+    try:
+        g_db, g_res = system._lc_chunk(db, fids_d, fids, kf_enabled, result, 0, m=m)
+        c_db, c_res = cpu_system._lc_chunk(to_cpu(db), fids_d.cpu(), fids, kf_enabled.cpu(), to_cpu(result), 0,
+                                           m=None if m is None else to_cpu(m))
+    finally:
+        system.lc_draw_fn = cpu_system.lc_draw_fn = None
+    # host syncs of the stage as the system runs it (its own draws)
+    _, syncs, sync_at = count_syncs(lambda: system._lc_chunk(db, fids_d, fids, kf_enabled, result, 0, m=m))
+    for name in ("success", "candidate_id", "matched_keyframe_id", "num_inliers"):
+        if not torch.equal(getattr(g_res, name).cpu(), getattr(c_res, name)):
+            raise AssertionError(f"[{label}] process_chunk on the card != CPU: {name}")
+    T, Tc = g_res.relative_transform.cpu(), c_res.relative_transform
+    rot = float((T[:, :3, :3] - Tc[:, :3, :3]).abs().max())
+    pos = float((T[:, :3, 3] - Tc[:, :3, 3]).abs().max())
+    bow = float((g_db.bow.cpu() - c_db.bow).abs().max())
+    if rot > 1e-4 or pos > 1e-3 or bow > 1e-6:
+        raise AssertionError(f"[{label}] process_chunk on the card != CPU: R {rot}, t {pos}, bow {bow}")
+    for name, g, c in zip(g_db._fields, g_db, c_db):
+        if name not in ("bow", "map_points", "pose") and not torch.equal(g.cpu(), c):
+            raise AssertionError(f"[{label}] process_chunk on the card != CPU: DB {name}")
+    require_one_read(label, "the loop-closure stage", sync_at)
+    n_cand = int((g_res.candidate_id >= 0).sum())
+    log(f"[{label}] process_chunk card == CPU on a full-width chunk: {n_cand} candidates, "
+        f"{int(g_res.success.sum())} verified (integer fields and DB identical; R {rot:.2e}, t {pos:.2e}, bow "
+        f"{bow:.2e}); {syncs} host sync(s) in the loop-closure stage, at {sync_at}")
+    return {"candidates": n_cand, "verified": int(g_res.success.sum()), "rotation_diff": rot,
+            "position_diff": pos, "bow_diff": bow, "host_syncs": syncs, "host_syncs_at": sync_at}
+
+
+def check_reloc_card_equals_cpu(label, system, cpu_system, db, result, valid, fids, m) -> dict:
+    """Relocalization of a chunk with blinded frames on the card and on the CPU, the same draws."""
+    store = {}
+    system.reloc_draw_fn, cpu_system.reloc_draw_fn = recorder(store, reloc_draw), replayer(store)
+    fids_d = torch.tensor(fids, dtype=torch.int32, device="cuda")
+    try:
+        if m is None:
+            g_res, g_M, g_ok = system._reloc_chunk(db, result, valid, fids_d, fids, 0)
+            c_res, c_M, c_ok = cpu_system._reloc_chunk(to_cpu(db), to_cpu(result), valid.cpu(), fids_d.cpu(), fids, 0)
+        else:
+            g_res, g_m, g_M, g_ok = system._reloc_chunk_pnp(db, result, m, valid, fids_d, fids, 0)
+            c_res, c_m, c_M, c_ok = cpu_system._reloc_chunk_pnp(to_cpu(db), to_cpu(result), to_cpu(m), valid.cpu(),
+                                                               fids_d.cpu(), fids, 0)
+    finally:
+        system.reloc_draw_fn = cpu_system.reloc_draw_fn = None
+    # host syncs of relocalization as the system runs it (its own draws)
+    if m is None:
+        _, syncs, sync_at = count_syncs(lambda: system._reloc_chunk(db, result, valid, fids_d, fids, 0))
+    else:
+        _, syncs, sync_at = count_syncs(lambda: system._reloc_chunk_pnp(db, result, m, valid, fids_d, fids, 0))
+    if not torch.equal(g_ok.cpu(), c_ok) or not torch.equal(g_res.pose_ok.cpu(), c_res.pose_ok):
+        raise AssertionError(f"[{label}] relocalization on the card != CPU: {g_ok.tolist()} vs {c_ok.tolist()}")
+    P, Pc = g_res.poses.cpu(), c_res.poses
+    rot = float((P[:, :3, :3] - Pc[:, :3, :3]).abs().max())
+    pos = float((P[:, :3, 3] - Pc[:, :3, 3]).abs().max())
+    if m is not None:
+        pos = max(pos, float((g_m.points.cpu() - c_m.points).abs().max()) / 10, float((g_m.kf_t.cpu() - c_m.kf_t).abs().max()))
+    if rot > 1e-4 or pos > 1e-3:
+        raise AssertionError(f"[{label}] relocalization on the card != CPU: rotation {rot}, position {pos}")
+    require_one_read(label, "relocalization", sync_at, allowed=svd_site())
+    need = int((valid & ~result.pose_ok).sum())
+    log(f"[{label}] relocalization card == CPU on a chunk with two noise-blinded frames: {need} frames lost, "
+        f"{int(g_ok.sum())} rescued (frames {torch.nonzero(g_ok).flatten().tolist()}); rotation diff {rot:.2e}, "
+        f"position diff {pos:.2e}; {syncs} host sync(s), at {sync_at}")
+    return {"lost": need, "rescued": int(g_ok.sum()), "rotation_diff": rot, "position_diff": pos,
+            "host_syncs": syncs, "host_syncs_at": sync_at}
+
+
+def drift_graph(n: int, dtype=torch.float32):
+    """A circle of ``n`` poses integrated with a 2% drift and one loop edge (n - 1 to 0, weight 20)."""
+    from tpuslam_torch.backend import pose_graph as tpg
+    from tpuslam_torch.common.geometry import so3_exp
+
+    rng = np.random.default_rng(0)
+    gt = np.tile(np.eye(4), (n, 1, 1))
+    for i in range(n):
+        a = 2 * np.pi * i / n
+        gt[i, :3, :3] = so3_exp(torch.tensor([0.0, a + np.pi / 2, 0.0], dtype=torch.float64)).numpy()
+        gt[i, :3, 3] = [10.0 * np.cos(a), 0.0, 10.0 * np.sin(a)]
+    est = [gt[0]]
+    for i in range(1, n):
+        rel = np.linalg.inv(gt[i - 1]) @ gt[i]
+        rel[:3, :3] = so3_exp(torch.from_numpy(rng.normal(size=3) * 0.01)).numpy() @ rel[:3, :3]
+        rel[:3, 3] *= 1.02
+        est.append(est[-1] @ rel)
+    g = tpg.graph_from_trajectory(torch.from_numpy(np.stack(est)))
+    g = tpg.add_edge(g, n - 1, 0, n - 1, torch.from_numpy(np.linalg.inv(gt[0]) @ gt[n - 1]), weight=20.0)
+    return g._replace(nodes=g.nodes.to(dtype), edge_T=g.edge_T.to(dtype), edge_weight=g.edge_weight.to(dtype))
+
+
+def check_pose_graph_pcg() -> dict:
+    """The pose graph's PCG (N 300 > 256) on the card against the CPU, float32 and float64."""
+    from tpuslam_torch.backend import pose_graph as tpg
+
+    out = {}
+    for dtype, tol in ((torch.float32, 1e-3), (torch.float64, 1e-6)):
+        g = drift_graph(300, dtype)
+        gg = tpg.PoseGraph(*(x.cuda() for x in g))
+        want = tpg.optimize_pose_graph(g, iterations=12)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = tpg.optimize_pose_graph(gg, iterations=12)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        diff = float((got.nodes.cpu() - want.nodes).abs().max())
+        before = float((torch.linalg.inv(g.nodes[0]) @ g.nodes[-1] - g.edge_T[299])[:3, 3].norm())
+        after = float((torch.linalg.inv(want.nodes[0]) @ want.nodes[-1] - g.edge_T[299])[:3, 3].norm())
+        name = str(dtype).replace("torch.", "")
+        log(f"[pose-graph] PCG on a 300-node drift graph, {name}: card vs CPU max diff {diff:.2e} (held at {tol}); "
+            f"loop gap {before:.3f} -> {after:.4f}; {ms:.1f} ms for 12 GN steps on the card (one call)")
+        if diff > tol or after > 0.05 * before:
+            raise AssertionError(f"[pose-graph] PCG on the card differs from the CPU ({name}): {diff}")
+        out[name] = {"card_vs_cpu": diff, "loop_gap": [before, after], "ms": ms}
+    return out
+
+
+def phase_slam_lc(camera, config_dir: Path, frames_np: np.ndarray, card: str, uses, tracking: str,
+                  main_chunk_ms: float) -> dict:
+    """SlamSystem with loop closure at the reference's defaults over the 96 frames."""
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.backend.pose_graph import optimize_pose_graph
+    from tpuslam_torch.model.system import SlamSystem
+
+    label = "slam-lc" if tracking == "vo" else "slam-lc-pnp"
+    check_tf32_off()
+    cfg = SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH)
+    vocab = config_dir / "vocabulary_tree.npz"
+    system = SlamSystem(camera, cfg, vocabulary=vocab, tracking=tracking, device="cuda")
+    n_chunks = N_FRAMES // BATCH
+    system.run_sequence(frames_np, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = system.run_sequence(frames_np, seed=0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launches(label, counts, {**{k: n_chunks for k in uses}, "fused_frontend_nms_batch": 0})
+    poses, pose_ok = out["poses"].astype(np.float64), out["pose_ok"]
+    if not np.isfinite(poses).all():
+        raise AssertionError(f"[{label}] non-finite poses")
+    ok_frac = float(pose_ok[1:].mean())
+    if ok_frac < 0.9:
+        raise AssertionError(f"[{label}] pose_ok on only {ok_frac:.3f} of frames")
+    loops = out["loops"]
+    if not loops or not out["pose_graph_applied"]:
+        raise AssertionError(f"[{label}] {len(loops)} verified loops, pose graph applied {out['pose_graph_applied']}")
+    fps = N_FRAMES / run_s
+    chunk_ms = 1e3 * run_s / n_chunks
+    db = out["db"]
+    log(f"[{label}] {N_FRAMES} frames batch {BATCH}: {fps:.2f} frames/s, {chunk_ms:.2f} ms a chunk (main path "
+        f"{main_chunk_ms:.2f} ms in this call); pose_ok {ok_frac:.3f}; {len(loops)} verified loops "
+        f"(first {[(lp['frame_id'], lp['matched_keyframe_id'], lp['num_inliers']) for lp in loops[:6]]}), pose graph "
+        f"applied; reloc_ok on {int(out['reloc_ok'].sum())} frames; DB {int(db.count)} keyframes; BA on "
+        f"{len(out['ba_events'])} chunks; z at frame 95 {poses[-1, 2, 3]:.3f} on {card}")
+    rec = {"fps": fps, "chunk_ms": chunk_ms, "main_chunk_ms": main_chunk_ms, "pose_ok_share": ok_frac,
+           "loops": len(loops), "loop_pairs": [[lp["frame_id"], lp["matched_keyframe_id"]] for lp in loops],
+           "reloc_frames": int(out["reloc_ok"].sum()), "db_count": int(db.count), "launches": counts}
+
+    # One chunk in parts from the state after the first: tracking, then the loop-closure stage; the
+    # second chunk revisits the first's places, so it has candidates.
+    frames = torch.from_numpy(frames_np).cuda().reshape(n_chunks, BATCH, *frames_np.shape[1:])
+    valid = torch.ones((n_chunks, BATCH), dtype=torch.bool)
+    carry, _ = system._step(system.initial_carry(), frames[0], valid[0], 0)
+    cpu_system = SlamSystem(camera, cfg, vocabulary=vocab, tracking=tracking, device="cpu")
+    fids = list(range(BATCH, 2 * BATCH))
+    fids_d = torch.tensor(fids, dtype=torch.int32, device="cuda")
+    valid_d = valid[1].cuda()
+
+    def track(chunk):
+        if tracking == "vo":
+            res, _ = system.pipeline.process_chunk(chunk, valid[1], carry[0], 0)
+            return res, None, carry[3]
+        res, st2 = system.pipeline.process_chunk_pnp(chunk, valid[1], carry[0], 0)
+        return res, st2.map, carry[1]
+
+    result, m, db = track(frames[1])
+    kf_enabled = valid_d & (result.pose_ok | (fids_d == 0))
+    rec["lc_card_vs_cpu"] = check_lc_card_equals_cpu(label, system, cpu_system, db, fids, kf_enabled, result, m)
+    rec["lc_stage_ms"] = synced_ms(lambda: system._lc_chunk(db, fids_d, fids, kf_enabled, result, 0, m=m))
+    rec["lc_stage_device_kernels"] = count_kernels(lambda: system._lc_chunk(db, fids_d, fids, kf_enabled, result, 0, m=m))
+    rec["step_ms"] = synced_ms(lambda: system._step(carry, frames[1], valid[1], 0), reps=3)
+    rec["device_kernels_per_chunk"] = count_kernels(lambda: system._step(carry, frames[1], valid[1], 0))
+
+    # Relocalization: the same chunk with two frames blinded by noise.
+    rng = np.random.default_rng(5)
+    blind = frames[1].clone()
+    for b in (BATCH // 4, BATCH // 4 + 1):  # frames 20 and 21
+        blind[b] = torch.from_numpy(rng.integers(0, 256, blind.shape[1:], dtype=np.uint8)).cuda()
+    b_result, b_m, _ = track(blind)
+    rec["reloc_card_vs_cpu"] = check_reloc_card_equals_cpu(label, system, cpu_system, db, b_result, valid_d, fids, b_m)
+    if tracking == "vo":
+        rec["reloc_ms"] = synced_ms(lambda: system._reloc_chunk(db, b_result, valid_d, fids_d, fids, 0), reps=3)
+    else:
+        rec["reloc_ms"] = synced_ms(lambda: system._reloc_chunk_pnp(db, b_result, b_m, valid_d, fids_d, fids, 0),
+                                    reps=3)
+
+    # The pose graph on the run's keyframes (one node a keyframe: 96) and its loop edges.
+    kf_fids = [f for f in range(N_FRAMES) if pose_ok[f] or f == 0]
+    g = system._loop_graph(out["poses"], kf_fids, loops)
+    rec["pose_graph_nodes"] = len(kf_fids)
+    rec["pose_graph_ms"] = synced_ms(lambda: optimize_pose_graph(g, iterations=12), reps=3)
+    rec["lc_share"] = rec["lc_stage_ms"] / rec["step_ms"]
+    log(f"[{label}] one chunk synchronised {rec['step_ms']:.2f} ms: loop-closure stage {rec['lc_stage_ms']:.2f} ms "
+        f"({100 * rec['lc_share']:.1f}%, {rec['lc_stage_device_kernels']} device kernels); relocalization "
+        f"{rec['reloc_ms']:.2f} ms when it fires; device kernels a chunk {rec['device_kernels_per_chunk']}; "
+        f"optimize_pose_graph {rec['pose_graph_ms']:.2f} ms at N = {len(kf_fids)} (12 GN steps, dense) on {card}")
     return rec
 
 
@@ -905,6 +1268,11 @@ def main() -> int:
     slam = {tracking: phase_slam(camera, config_dir, frames_np, card, main_uses, tracking, main_chunk_ms)
             for tracking in ("vo", "pnp")}
 
+    # Full SLAM with loop closure, relocalization and the pose graph: VO, then PnP tracking.
+    slam_lc = {tracking: phase_slam_lc(camera, config_dir, frames_np, card, main_uses, tracking, main_chunk_ms)
+               for tracking in ("vo", "pnp")}
+    pose_graph = check_pose_graph_pcg()
+
     for r in records:
         on_pyramid = r["name"] == "fused_frontend_nms_batch"
         r["path"] = "pyramid (configs/multiscale, nms_fused)" if on_pyramid else "main (configs/)"
@@ -914,7 +1282,9 @@ def main() -> int:
                                  "pyramid_kernel1": pyr_counts[False][r["name"]],
                                  "pnp": pnp["launches"][r["name"]],
                                  "slam": slam["vo"]["launches"][r["name"]],
-                                 "slam_pnp": slam["pnp"]["launches"][r["name"]]}
+                                 "slam_pnp": slam["pnp"]["launches"][r["name"]],
+                                 "slam_lc": slam_lc["vo"]["launches"][r["name"]],
+                                 "slam_lc_pnp": slam_lc["pnp"]["launches"][r["name"]]}
     # the main path's kernel time per chunk, from the kernels phase, against its timed chunk
     chunk_ms = main_chunk_ms
     kernel_ms = sum(r["ms"] * r["launches_per_chunk"] for r in records if r["path"].startswith("main"))
@@ -940,7 +1310,8 @@ def main() -> int:
                     "main_chunk_ms": chunk_ms, "main_kernel_ms_per_chunk": kernel_ms,
                     "pyramid_chunk_ms": pyr_chunk_ms, "pyramid_kernel_ms_per_chunk": pyr_kernel_ms,
                     "pyramid_fps_nms_fused": pyr_fps[True], "pyramid_fps_kernel1": pyr_fps[False],
-                    "pnp": pnp, "slam": slam["vo"], "slam_pnp": slam["pnp"]}))
+                    "pnp": pnp, "slam": slam["vo"], "slam_pnp": slam["pnp"], "slam_lc": slam_lc["vo"],
+                    "slam_lc_pnp": slam_lc["pnp"], "pose_graph_pcg": pose_graph}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

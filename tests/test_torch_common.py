@@ -16,10 +16,12 @@ import torch
 
 from tpuslam.common import camera as jcam
 from tpuslam.common import geometry as jgeo
+from tpuslam.common import hamming as jham
 from tpuslam.common.hamming import hamming_matrix as j_hamming
 from tpuslam.config.schema import SlamConfig as JSlamConfig
 from tpuslam_torch.common import camera as tcam
 from tpuslam_torch.common import geometry as tgeo
+from tpuslam_torch.common import hamming as tham
 from tpuslam_torch.common.hamming import hamming_matrix as t_hamming
 from tpuslam_torch.config.schema import SlamConfig as TSlamConfig
 from tpuslam_torch.pre.stream import FrameStream, decode_png_gray8
@@ -124,6 +126,45 @@ def test_hamming_matrix_exact():
     for i in range(3):
         want = np.asarray(j_hamming(jnp.asarray(d1[i]), jnp.asarray(d2[i])))
         np.testing.assert_array_equal(got[i], want)
+
+
+@pytest.mark.parametrize("nbytes", [32, 7, 72])
+def test_popcount_and_hamming_distance_exact(nbytes):
+    """The 256-entry table and the SWAR count on 32-bit words (32 and 72 bytes; 7 takes the table)."""
+    rng = np.random.default_rng(nbytes)
+    d1 = rng.integers(0, 256, (40, 3, nbytes), dtype=np.uint8)
+    d2 = rng.integers(0, 256, (40, 3, nbytes), dtype=np.uint8)
+    d2[0] = d1[0]  # distance 0
+    d2[1] = ~d1[1]  # every bit
+    got = tham.hamming_distance(torch.from_numpy(d1), torch.from_numpy(d2)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jham.hamming_distance(jnp.asarray(d1), jnp.asarray(d2))))
+    assert (got[0] == 0).all() and (got[1] == 8 * nbytes).all()
+    every = np.arange(256, dtype=np.uint8)
+    np.testing.assert_array_equal(tham.popcount_bytes(torch.from_numpy(every)).numpy(),
+                                  np.asarray(jham.popcount_bytes(jnp.asarray(every))))
+
+
+def test_so3_log_matches():
+    """Generic angles, the small-angle branch and near its switch."""
+    rng = np.random.default_rng(3)
+    w = rng.normal(size=(64, 3)).astype(np.float32)
+    w[:16] *= 1e-4
+    w[16:24] *= 1.4e-3 / np.linalg.norm(w[16:24], axis=1, keepdims=True)
+    R = np.array(jgeo.so3_exp(jnp.asarray(w)))
+    want = np.asarray(jgeo.so3_log(jnp.asarray(R)))
+    got = tgeo.so3_log(torch.from_numpy(R)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_nullspace_basis_matches():
+    """Householder QR nullspace of 5×9 systems: an orthonormal basis equal to the reference's."""
+    rng = np.random.default_rng(4)
+    A = rng.normal(size=(128, 5, 9)).astype(np.float32)
+    want = np.asarray(jgeo.nullspace_basis(jnp.asarray(A)))
+    got = tgeo.nullspace_basis(torch.from_numpy(A)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    np.testing.assert_allclose(np.einsum("bmn,bnk->bmk", A, got), 0.0, atol=2e-5)
+    np.testing.assert_allclose(np.einsum("bnk,bnl->bkl", got, got), np.tile(np.eye(4), (128, 1, 1)), atol=1e-5)
 
 
 def _sign_aligned(a, b):

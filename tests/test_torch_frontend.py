@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ba import one_torch_thread  # noqa: F401 (autouse: the port on one thread)
 from tpuslam.config.schema import DetectorConfig as JDetectorConfig
 from tpuslam.frontend import fast as jfast
 from tpuslam.frontend.detector import FeatureDetector as JDetector

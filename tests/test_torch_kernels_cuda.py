@@ -23,6 +23,17 @@ the point ring recycling, ``bundle_adjust`` must agree with itself on the
 CPU (float64: 1e-8; float32: costs rtol 1e-3, poses 1e-3), and neither the
 fold nor a fixed-step BA may sync with the host
 (``torch.cuda.set_sync_debug_mode("error")``).
+
+Loop closure adds kernel 4 at relocalization's shape (two frames × 1024
+five-point samples × 10 candidates, 1024 matches), whose masked candidates
+may hold NaN: the unmasked rows must match the twin at rtol 1e-5.  On the
+card, against the CPU given the same draws: the five-point pose (R 1e-4,
+t 1e-3, inliers ±2), a loop-closure chunk over a ring overflow (integers
+identical, BoW 1e-6), relocalization (ok and ids identical, poses 1e-4 /
+1e-3) and the pose graph's PCG on a 300-node drift graph.  The chunk syncs
+with the host exactly once (its one read), relocalization only where
+``torch.linalg.svd`` does (``set_sync_debug_mode("warn")``, counted after a
+first call has built the Jacobi schedules on the card).
 """
 
 from pathlib import Path
@@ -578,3 +589,259 @@ def test_fold_and_fixed_step_ba_do_not_sync(dev):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert int(m.kf_count) == 12 and float(ba.final_cost) < float(ba.initial_cost)
+
+
+# --- loop closure: kernel 4 at relocalization's shape, the stages card vs CPU -------------
+
+
+def _count_syncs(fn):
+    """(result, host syncs ``fn`` made, {"file:line": count}) from sync debug mode "warn", each put
+    at the innermost line of this repository on the Python stack when it was raised."""
+    import collections
+    import traceback
+    import warnings
+
+    repo = str(Path(__file__).resolve().parent.parent)
+    where = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):  # not the mode switch's own notice
+            ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(repo)]
+            site = ours[-1] if ours else traceback.FrameSummary(filename, lineno, "")
+            where[f"{Path(site.filename).name}:{site.lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(where.values()), dict(where)
+
+
+def _fivepoint_case(d, n_pairs=2, H=1024, M=1024, seed=0):
+    """Matches of a rigid scene with 40% outliers, and H five-point samples a pair."""
+    from tpuslam_torch.common.geometry import so3_exp
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[700.0, 0, 600], [0, 700.0, 250], [0, 0, 1]], np.float32)
+    x1s, x2s = [], []
+    for _ in range(n_pairs):
+        R = so3_exp(torch.from_numpy(rng.normal(size=3).astype(np.float32) * 0.05)).numpy()
+        t = rng.normal(size=3)
+        t /= np.linalg.norm(t)
+        X = rng.uniform([-8, -3, 5], [8, 3, 40], (M, 3))
+        p1, p2 = X @ K.T, (X @ R.T + t) @ K.T
+        uv1 = p1[:, :2] / p1[:, 2:]
+        uv2 = p2[:, :2] / p2[:, 2:] + rng.normal(0, 0.5, (M, 2))
+        out = rng.random(M) < 0.4
+        uv2[out] = rng.uniform([0, 0], [1200, 500], (int(out.sum()), 2))
+        x1s.append(uv1)
+        x2s.append(uv2)
+    valid = rng.random((n_pairs, M)) > 0.1
+    ranks = rng.integers(0, valid.sum(1).min(), (n_pairs, H, 5))
+    to = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to(d, dt)  # noqa: E731
+    return to(np.stack(x1s)), to(np.stack(x2s)), to(valid, torch.bool), to(K), to(ranks, torch.int64)
+
+
+def test_kernel4_reloc_shape_with_masked_nan_candidates(dev):
+    """Kernel 4 at (2, 10240, 1024) on real five-point candidates; masked rows carry NaN."""
+    from tpuslam_torch.common.geometry import normalize_points
+    from tpuslam_torch.frontend.fivepoint import fivepoint_essential
+
+    pts1, pts2, valid, K, ranks = _fivepoint_case(dev)
+    x1, x2 = normalize_points(K, pts1), normalize_points(K, pts2)
+    idx = ranks.reshape(2, -1)[..., None].expand(-1, -1, 2)
+    E, ok = fivepoint_essential(torch.gather(x1, 1, idx).reshape(2, 1024, 5, 2),
+                                torch.gather(x2, 1, idx).reshape(2, 1024, 5, 2))
+    E = E.reshape(2, 10240, 9).contiguous()
+    ok = ok.reshape(2, 10240)
+    E[:, 0] = torch.nan  # at least one NaN row a pair, masked
+    ok[:, 0] = False
+    assert ok.float().mean() > 0.1 and (~torch.isfinite(E[~ok]).all(-1)).any()
+    P = kp.build_msac_operand(x1, x2, valid, (2.0 / 700.0) ** 2)
+    got = kp.msac_scores(E, P)
+    want = kp.msac_scores_reference(E, P)
+    torch.testing.assert_close(got[ok], want[ok], rtol=1e-5, atol=0.0)
+    assert torch.isfinite(got[ok]).all()
+
+
+def test_fivepoint_pose_card_equals_cpu(dev):
+    from tpuslam_torch.frontend.pose import estimate_relative_pose
+
+    args = _fivepoint_case(dev, H=256, M=512)
+    kw = dict(num_hypotheses=256, sample_size=5, inlier_threshold_px=2.0)
+    got = estimate_relative_pose(*args[:4], draws=args[4], **kw)
+    want = estimate_relative_pose(*(a.cpu() for a in args[:4]), draws=args[4].cpu(), **kw)
+    assert torch.equal(got.success.cpu(), want.success) and bool(want.success.all())
+    torch.testing.assert_close(got.R.cpu(), want.R, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.t.cpu(), want.t, rtol=0, atol=1e-3)
+    assert (got.num_inliers.cpu() - want.num_inliers).abs().max() <= 2
+
+
+def _lc_features(rng, B=8, K=128, shift=0.0):
+    xy = rng.uniform([0, 0], [640, 480], (B, K, 2)).astype(np.float32)
+    desc = rng.integers(0, 256, (B, K, 32), dtype=np.uint8)
+    kv = rng.random((B, K)) > 0.05
+    rays = np.concatenate([(xy - [320, 240]) / 500.0, np.ones((B, K, 1))], -1)
+    mp = (rays * rng.uniform(5, 15, (B, K, 1))).astype(np.float32)
+    return desc, xy + shift, kv, mp
+
+
+def _recorded(d, store):
+    """A PnpSampler drawing on ``d`` and keeping its samples, and one replaying them on the CPU."""
+    from tpuslam_torch.backend.pnp import gumbel_sample_indices
+
+    def draw(positions, valid, H):
+        gen = torch.Generator(device=valid.device)
+        out = []
+        for i, p in enumerate(positions):
+            gen.manual_seed(1000 + p)
+            out.append(gumbel_sample_indices(valid[i], H, 6, gen))
+        store[tuple(positions)] = torch.stack(out)
+        return store[tuple(positions)]
+
+    return draw, (lambda positions, valid, H: store[tuple(positions)].cpu())
+
+
+def test_loop_closure_chunk_card_equals_cpu_with_one_sync(dev):
+    """Three chunks into a 16-row ring (redundancy eviction on the third), the later chunks revisits
+    of the first: card == CPU given the same samples, one host sync a chunk."""
+    from tpuslam_torch.backend.loop_closure import KeyframeDB, LoopClosure
+    from tpuslam_torch.config.schema import LoopClosureConfig, MatcherConfig
+
+    cfg = LoopClosureConfig(min_absolute_score=0.01, relative_score_factor=1.0, verify_budget=4,
+                            max_keyframes=16, eviction_protect_recent=2)
+    voc = Path(__file__).resolve().parent.parent / "configs" / "vocabulary_tree.npz"
+    lcs = {d: LoopClosure(voc, cfg, MatcherConfig(ratio_test_threshold=0.8), device=d) for d in (dev, "cpu")}
+    rng = np.random.default_rng(0)
+    base = _lc_features(rng)
+    K = torch.tensor([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    dbs = {d: lc.new_db(128) for d, lc in lcs.items()}
+    store = {}
+    record, replay = _recorded(dev, store)
+    n_success = 0
+    for c in range(3):
+        feats = base
+        if c > 0:  # a revisit: the same place seen again, a tenth of its descriptors new (no row's BoW is
+            # another's exactly: duplicate rows tie in the eviction score up to rounding, which the card
+            # and the CPU break differently)
+            desc = base[0].copy()
+            redo = rng.random(desc.shape[:2]) < 0.1
+            desc[redo] = rng.integers(0, 256, (int(redo.sum()), 32), dtype=np.uint8)
+            feats = (desc, base[1] + 1.0, base[2], base[3])
+        res = {}
+        for d, sampler in ((dev, record), ("cpu", replay)):
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(d) for a in feats]
+            fids, Kd = torch.arange(8, dtype=torch.int32, device=d) + 8 * c, K.to(d)
+            call = lambda: lcs[d].process_chunk(dbs[d], fids, torch.ones(8, dtype=torch.bool, device=d),  # noqa: E731
+                                                *args[:3], args[3], args[2], Kd, sampler)
+            if d == dev and c == 2:  # counted once the earlier chunks built the Jacobi schedules, once
+                (dbs[d], res[d]), syncs, where = _count_syncs(call)
+                assert syncs == 1, f"chunk {c}: {syncs} host syncs at {where}"
+            else:
+                dbs[d], res[d] = call()
+        for name in ("success", "candidate_id", "matched_keyframe_id", "num_inliers"):
+            assert torch.equal(getattr(res[dev], name).cpu(), getattr(res["cpu"], name)), name
+        torch.testing.assert_close(res[dev].relative_transform.cpu(), res["cpu"].relative_transform,
+                                   rtol=0, atol=1e-3)
+        for name in KeyframeDB._fields:
+            g, w = getattr(dbs[dev], name).cpu(), getattr(dbs["cpu"], name)
+            if name == "bow":
+                torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+            else:
+                assert torch.equal(g, w), name
+        n_success += int(res["cpu"].success.sum())
+    assert n_success >= 4
+
+
+def test_relocalize_card_equals_cpu(dev):
+    """Relocalization of a near revisit and two noise frames: card == CPU given the same draws; it
+    syncs with the host only where ``torch.linalg.svd`` does (twice: projection and decomposition)."""
+    from tpuslam_torch.backend.loop_closure import RELOC_HYPOTHESES, LoopClosure, generator_sampler
+    from tpuslam_torch.backend.pnp import gumbel_top_indices
+    from tpuslam_torch.config.schema import LoopClosureConfig, MatcherConfig
+
+    cfg = LoopClosureConfig(min_absolute_score=0.01)
+    voc = Path(__file__).resolve().parent.parent / "configs" / "vocabulary_tree.npz"
+    rng = np.random.default_rng(1)
+    desc, xy, kv, mp = _lc_features(rng)
+    poses = np.tile(np.eye(4, dtype=np.float32), (8, 1, 1))
+    poses[:, :3, 3] = np.arange(8)[:, None] * np.array([1.0, 0.25, 2.0])
+    qdesc = desc.copy()
+    qdesc[5] = rng.integers(0, 256, qdesc[5].shape, dtype=np.uint8)
+    qdesc[6] = rng.integers(0, 256, qdesc[6].shape, dtype=np.uint8)
+    need = np.zeros(8, bool)
+    need[[2, 5, 6]] = True
+    u_pnp = torch.from_numpy(rng.random((8, 512, 128)).astype(np.float32))
+    u_rank = torch.from_numpy(rng.random((8, RELOC_HYPOTHESES, 5)).astype(np.float32))
+
+    noise = {}  # the uniforms on each device, copied before the counted call
+
+    def draws(sel, pnp_valid, n_valid, H):
+        n = torch.clamp_min(n_valid, 1).float()[:, None, None]
+        up, ur = noise[sel.device.type]
+        return gumbel_top_indices(up[sel], pnp_valid, 6), torch.minimum(torch.floor(ur[sel] * n), n - 1).long()
+
+    out = {}
+    K = torch.tensor([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    for d in (dev, "cpu"):
+        lc = LoopClosure(voc, cfg, MatcherConfig(ratio_test_threshold=0.8), device=d)
+        noise[torch.device(d).type] = (u_pnp.to(d), u_rank.to(d))
+        to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(d)  # noqa: E731
+        db, _ = lc.process_chunk(lc.new_db(128), torch.arange(8, dtype=torch.int32, device=d),
+                                 torch.ones(8, dtype=torch.bool, device=d), to(desc), to(xy), to(kv), to(mp), to(kv),
+                                 K.to(d), generator_sampler(), poses=to(poses))
+        q = [to(need), to(qdesc), to(xy + 2.0), to(kv), K.to(d)]
+        call = lambda: lc.relocalize_chunk(db, *q, draws)  # noqa: E731
+        if d == dev:
+            call()  # the first call builds the Jacobi schedules of the 4-, 9- and 12-column solves
+            out[d], syncs, where = _count_syncs(call)
+            _, svd_syncs, _ = _count_syncs(lambda: torch.linalg.svd(torch.eye(3, device=dev).expand(2, 3, 3)))
+            assert syncs == 2 * svd_syncs, (syncs, svd_syncs, where)
+        else:
+            out[d] = call()
+    ok, T, ni, matched = (x.cpu() for x in out[dev])
+    assert torch.equal(ok, out["cpu"][0]) and torch.equal(matched, out["cpu"][3])
+    assert bool(ok[2]) and int(matched[2]) == 2
+    assert (ni - out["cpu"][2]).abs().max() <= 2
+    torch.testing.assert_close(T[:, :3, :3], out["cpu"][1][:, :3, :3], rtol=0, atol=1e-4)
+    torch.testing.assert_close(T[:, :3, 3], out["cpu"][1][:, :3, 3], rtol=0, atol=1e-3)
+
+
+def drift_graph(n: int, dtype=torch.float32):
+    """A circle of ``n`` poses integrated with a 2% drift and one loop edge (n − 1 ↔ 0, weight 20)."""
+    from tpuslam_torch.backend import pose_graph as tpg
+    from tpuslam_torch.common.geometry import so3_exp
+
+    rng = np.random.default_rng(0)
+    gt = np.tile(np.eye(4), (n, 1, 1))
+    for i in range(n):
+        a = 2 * np.pi * i / n
+        gt[i, :3, :3] = so3_exp(torch.tensor([0.0, a + np.pi / 2, 0.0], dtype=torch.float64)).numpy()
+        gt[i, :3, 3] = [10.0 * np.cos(a), 0.0, 10.0 * np.sin(a)]
+    est = [gt[0]]
+    for i in range(1, n):
+        rel = np.linalg.inv(gt[i - 1]) @ gt[i]
+        rel[:3, :3] = so3_exp(torch.from_numpy(rng.normal(size=3) * 0.01)).numpy() @ rel[:3, :3]
+        rel[:3, 3] *= 1.02
+        est.append(est[-1] @ rel)
+    g = tpg.graph_from_trajectory(torch.from_numpy(np.stack(est)))
+    g = tpg.add_edge(g, n - 1, 0, n - 1, torch.from_numpy(np.linalg.inv(gt[0]) @ gt[n - 1]), weight=20.0)
+    return g._replace(nodes=g.nodes.to(dtype), edge_T=g.edge_T.to(dtype), edge_weight=g.edge_weight.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_pose_graph_pcg_card_equals_cpu(dev, dtype):
+    from tpuslam_torch.backend import pose_graph as tpg
+
+    g = drift_graph(300, dtype)
+    want = tpg.optimize_pose_graph(g, iterations=12)  # N > 256: PCG
+    got = tpg.optimize_pose_graph(tpg.PoseGraph(*(x.to(dev) for x in g)), iterations=12)
+    tol = 1e-3 if dtype == torch.float32 else 1e-6
+    torch.testing.assert_close(got.nodes.cpu(), want.nodes, rtol=0, atol=tol)
+    loop_gap = lambda nodes: float((torch.linalg.inv(nodes[0]) @ nodes[-1] - g.edge_T[299])[:3, 3].norm())  # noqa: E731
+    assert loop_gap(want.nodes) < 0.05 * loop_gap(g.nodes)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ba import one_torch_thread  # noqa: F401 (autouse: the port on one thread)
 from tpuslam.frontend import matcher as jm
 from tpuslam.frontend import pose as jpose
 from tpuslam.kernels.pose_pallas import build_msac_operand as j_build_operand
@@ -189,6 +190,13 @@ def test_decompose_essential_svd_signs_absorbed(pairs):
 
 
 def test_five_point_not_ported(pairs):
+    """The five-point path (ported since; its parity with the reference is ``test_torch_fivepoint.py``):
+    on the fixture pairs, from the port's own draws, it finds the pose the eight-point path finds."""
     args = [torch.from_numpy(pairs[k]) for k in ("pts1", "pts2", "valid", "K")]
-    with pytest.raises(NotImplementedError):
-        tpose.estimate_relative_pose(*args, sample_size=5)
+    gen = torch.Generator().manual_seed(0)
+    five = tpose.estimate_relative_pose(*args, gen, num_hypotheses=64, sample_size=5, inlier_threshold_px=2.0)
+    eight = tpose.estimate_relative_pose(*args, gen, num_hypotheses=H_HYP, inlier_threshold_px=2.0)
+    assert five.success.all() and eight.success.all()
+    cos = (torch.einsum("bij,bij->b", five.R, eight.R) - 1) / 2
+    assert (torch.rad2deg(torch.arccos(cos.clamp(-1, 1))) < 1.0).all()
+    assert ((five.t * eight.t).sum(-1) > 0.99).all()

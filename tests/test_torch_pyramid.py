@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_ba import one_torch_thread  # noqa: F401 (autouse: the port on one thread)
 from tpuslam.common.camera import Camera as JCamera
 from tpuslam.config.schema import DetectorConfig as JDetectorConfig
 from tpuslam.config.schema import SlamConfig as JSlamConfig

@@ -135,6 +135,7 @@ def check_system(case, want, got):
                                atol=1e-1 if lm_steps else 1e-3)
     assert got["poses"][-1, 2, 3] > 5.0  # forward along +z
     assert got["loops"] == [] and not got["reloc_ok"].any() and got["pose_graph_applied"] is False
+    assert got["db"] is None
 
 
 def test_system_matches_reference(runs):
@@ -155,17 +156,21 @@ def test_system_map_multi_observations(runs):
 
 
 def test_unported_options_raise(data_dir):
-    """Loop closure (a vocabulary with enable_loop_closure) and localization are the next slices."""
+    """Loop closure constructs (a vocabulary with enable_loop_closure); the streaming run(), warm_start
+    and localization are later slices."""
     cfg_dir = data_dir.parent.parent / "configs"
     cam = TCamera.from_yaml(cfg_dir / "camera.yml")
     cfg = TSlamConfig.from_yaml_dir(cfg_dir)
+    lc = TSystem(cam, cfg, vocabulary=cfg_dir / "vocabulary_tree.npz", device="cpu")
+    assert lc.loop_closure is not None and lc.loop_closure.vocabulary.num_words == 4096
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TSystem(cam, cfg, vocabulary=cfg_dir / "vocabulary.npz", device="cpu")
+        lc.run(iter([]))
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         TSystem(cam, cfg, vocabulary=None, tracking="pnp", localization_only=True, device="cpu")
     with pytest.raises(ValueError):
         TSystem(cam, cfg, vocabulary=None, tracking="slam", device="cpu")
     sysm = TSystem(cam, cfg, vocabulary=cfg_dir / "vocabulary.npz", enable_loop_closure=False, device="cpu")
+    assert sysm.loop_closure is None
     assert sysm.pipeline.with_features and sysm.pipeline.max_map_points == 4096
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         sysm.run_sequence(np.zeros((1, 8, 8), np.uint8), warm_start={"map": None})

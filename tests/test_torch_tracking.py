@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from test_torch_pnp import jax_gumbel_samples
+from test_torch_ba import one_torch_thread  # noqa: F401 (autouse: the port on one thread)
 from tpuslam.backend import map as jmap
 from tpuslam.common.camera import Camera as JCamera
 from tpuslam.config.schema import SlamConfig as JSlamConfig

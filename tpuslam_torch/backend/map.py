@@ -73,6 +73,17 @@ def apply_row_select(
     return torch.where(w, rows, torch.zeros((), dtype=values.dtype, device=values.device))
 
 
+def scatter_rows_dense(
+    values: torch.Tensor,  # (..., M, D) or (..., M) source values
+    slots: torch.Tensor,  # (..., M) target rows (may repeat; out of range = dropped)
+    valid: torch.Tensor,  # (..., M) bool
+    out_rows: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """First-valid-writer scatter → (rows (..., out_rows, D), written (..., out_rows)); unwritten rows are 0."""
+    first, written = row_select(slots, valid, out_rows)
+    return apply_row_select(first, written, values), written
+
+
 def _scatter_rows_multi(
     slots: torch.Tensor,  # (..., M) target rows
     valid: torch.Tensor,  # (..., M) bool

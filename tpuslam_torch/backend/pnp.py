@@ -207,24 +207,29 @@ def motion_pnp(
     )
 
 
+def gumbel_top_indices(u: torch.Tensor, valid: torch.Tensor, sample_size: int) -> torch.Tensor:
+    """(..., H, S) indices from (..., H, M) uniforms: S distinct valid matches a row, by Gumbel top-S.
+
+    The top-S is an iterated argmax (the first index wins a tie, as in the
+    reference); ``valid`` is (..., M).
+    """
+    g = -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(torch.float32).tiny)))
+    g = torch.where(valid[..., None, :], g, -torch.inf)
+    iota = torch.arange(g.shape[-1], device=g.device)
+    cols = []
+    for _ in range(sample_size):
+        i = torch.argmax(g, dim=-1)
+        cols.append(i)
+        g = torch.where(iota == i[..., None], -torch.inf, g)
+    return torch.stack(cols, dim=-1)
+
+
 def gumbel_sample_indices(
     valid: torch.Tensor, num_hypotheses: int, sample_size: int, generator: torch.Generator | None
 ) -> torch.Tensor:
-    """(H, S) indices: S distinct valid matches a hypothesis, by Gumbel top-S.
-
-    The noise comes from ``generator`` on ``valid``'s device; the top-S is
-    an iterated argmax (the first index wins a tie, as in the reference).
-    """
+    """(H, S) indices: S distinct valid matches a hypothesis, from ``generator``'s noise on ``valid``'s device."""
     u = torch.rand((num_hypotheses, valid.shape[0]), generator=generator, device=valid.device)
-    g = -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(torch.float32).tiny)))
-    g = torch.where(valid[None, :], g, -torch.inf)
-    iota = torch.arange(g.shape[1], device=g.device)[None, :]
-    cols = []
-    for _ in range(sample_size):
-        i = torch.argmax(g, dim=1)
-        cols.append(i)
-        g = torch.where(iota == i[:, None], -torch.inf, g)
-    return torch.stack(cols, dim=1)
+    return gumbel_top_indices(u, valid, sample_size)
 
 
 def ransac_pnp(

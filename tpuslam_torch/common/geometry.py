@@ -52,7 +52,7 @@ def nullvec_jacobi(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
     n = A.shape[-1]
     A = A.clone()
     V = torch.eye(n, dtype=A.dtype, device=A.device).expand(*A.shape[:-2], n, n).clone()
-    eps = torch.tensor(1e-30, dtype=A.dtype, device=A.device)
+    eps = 1e-30  # a Python scalar: a device constant would be a host-to-device copy each call
     schedule = _schedule_indices(n, A.device)
     for _ in range(sweeps):
         for ps, qs in schedule:
@@ -160,3 +160,52 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     Kx = hat(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
     return eye + a * Kx + b * (Kx @ Kx)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Log map (..., 3, 3) → (..., 3) rotation vectors (principal branch).
+
+    Differentiable at the identity (where the pose graph linearises): the
+    small-angle branch switches on the input, before ``arccos`` sees a value
+    near 1.  Angles near π are clamped.
+    """
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp((trace - 1.0) / 2.0, -1.0 + 1e-7, 1.0)
+    small = cos_theta > 1.0 - 1e-6
+    cos_safe = torch.where(small, torch.zeros_like(cos_theta), cos_theta)  # a tensor: forward-mode AD keeps the dtype
+    theta = torch.arccos(cos_safe)
+    sin_safe = torch.sqrt(torch.clamp_min(1.0 - cos_safe * cos_safe, 1e-12))
+    w = torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]], dim=-1
+    )
+    scale = torch.where(small, 0.5 + (1.0 - cos_theta) / 6.0, theta / (2.0 * sin_safe))
+    return w * scale[..., None]
+
+
+def nullspace_basis(A: torch.Tensor) -> torch.Tensor:
+    """Orthonormal basis of the nullspace of a wide matrix, batched.
+
+    ``A``: (..., m, n) with m < n; returns (..., n, n − m).  Householder QR
+    of Aᵀ (m reflections, each a batched rank-1 update): the last n − m
+    columns of Q span null(A).  Rank-deficient inputs give a subspace that
+    is orthogonal but not exactly null.
+    """
+    m, n = A.shape[-2:]
+    if m >= n:
+        raise ValueError("nullspace_basis needs an underdetermined system")
+    B = A.transpose(-1, -2)  # (..., n, m)
+    rows = torch.arange(n, device=A.device)
+    vs = []
+    for k in range(m):
+        x = torch.where(rows >= k, B[..., :, k], 0.0)  # column k below the diagonal
+        xnorm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        x0 = x[..., k : k + 1]
+        alpha = -torch.where(x0 >= 0, 1.0, -1.0) * xnorm  # no cancellation in x − αe_k
+        v = x - alpha * (rows == k).to(A.dtype)
+        v = v / torch.clamp_min(torch.linalg.vector_norm(v, dim=-1, keepdim=True), 1e-30)
+        B = B - 2.0 * v[..., :, None] * torch.einsum("...n,...nm->...m", v, B)[..., None, :]
+        vs.append(v)
+    Q = torch.eye(n, dtype=A.dtype, device=A.device)[:, m:].expand(*A.shape[:-2], n, n - m)
+    for v in reversed(vs):  # q_j = H_0 ··· H_{m−1} e_j
+        Q = Q - 2.0 * v[..., :, None] * torch.einsum("...n,...nk->...k", v, Q)[..., None, :]
+    return Q

@@ -70,20 +70,19 @@ def match_descriptors(
     dist = hamming_matrix(desc1, desc2).to(torch.int16)
     if use_spatial_penalty and xy1 is not None and xy2 is not None:
         dist = penalized_distance_matrix(dist, xy1, xy2, max_jump_radius)
-    sent = torch.tensor(_SENT16, dtype=torch.int16, device=dev)
-    dist = torch.where(valid2[..., None, :], dist, sent)
+    dist = torch.where(valid2[..., None, :], dist, _SENT16)  # Python scalars: no host-to-device copy
 
     best = dist.amin(dim=-1)
     best_idx = torch.argmin(dist, dim=-1)  # first occurrence
     col = torch.arange(dist.shape[-1], device=dev)
-    second = torch.where(col == best_idx[..., None], sent, dist).amin(dim=-1)
+    second = torch.where(col == best_idx[..., None], _SENT16, dist).amin(dim=-1)
 
     good = valid1 & (best < _SENT16)
     if use_ratio_test:
         good = good & (best.to(torch.float32) < ratio_threshold * second.to(torch.float32))
     query_idx = torch.arange(n1, device=dev).expand(good.shape)
     distance = best.to(torch.float32)
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = torch.inf
 
     if not filter_matches:
         return MatchSet(

@@ -12,12 +12,18 @@ matches that the reference package draws with ``jax.random.randint``; a
 caller (a test) may pass JAX's own.  Otherwise they come from the caller's
 ``torch.Generator`` as ``floor(u · n_valid)``, with no host sync.
 
+With ``sample_size=5`` each sample gives up to ten candidates from the
+five-point solver (``frontend/fivepoint.py``); all 10·H of them are scored
+by kernel 4, and the masked ones (complex roots, degenerate samples, which
+may hold NaN) are set to M + 1 after the kernel, so they rank last.
+
 Ties resolve as ``lax.top_k`` resolves them (lowest index first), through
-stable sorts.  ``SampleSize: 5`` (the five-point solver) is not ported yet.
+stable sorts.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -40,10 +46,14 @@ class PoseResult(NamedTuple):
     success: torch.Tensor  # (B,) bool
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small constant tensor, built once per (dtype, device): no host-to-device copy per call."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _W(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(
-        [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], dtype=like.dtype, device=like.device
-    )
+    return _constant(((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0)), like.dtype, like.device)
 
 
 def _eight_point_rows(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -54,11 +64,18 @@ def _eight_point_rows(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     return torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, one], dim=-1)
 
 
+def _svd(E: torch.Tensor):
+    """SVD of (..., 3, 3); a matrix with a non-finite entry gives NaN factors, as ``jnp.linalg.svd``
+    does (torch raises on the CPU).  Only a five-point sample with every candidate masked has one."""
+    finite = torch.isfinite(E).all(dim=(-2, -1), keepdim=True)
+    u, s, vt = torch.linalg.svd(torch.where(finite, E, torch.eye(3, dtype=E.dtype, device=E.device)))
+    return torch.where(finite, u, torch.nan), torch.where(finite[..., 0], s, torch.nan), torch.where(finite, vt, torch.nan)
+
+
 def _project_essential(E: torch.Tensor) -> torch.Tensor:
     """Snap (..., 3, 3) onto the essential manifold: singular values → (1, 1, 0)."""
-    u, _, vt = torch.linalg.svd(E)
-    s = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
-    return torch.matmul(u * s, vt)
+    u, _, vt = _svd(E)
+    return torch.matmul(u * _constant((1.0, 1.0, 0.0), E.dtype, E.device), vt)
 
 
 def _solve_e_from_rows(
@@ -90,7 +107,7 @@ def sampson_error_sq(E: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor, with_d
 
 def decompose_essential(E: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """E (..., 3, 3) → (R1, R2, t): R1 = U W Vᵀ, R2 = U Wᵀ Vᵀ (det-corrected), t = U[:, 2]."""
-    u, _, vt = torch.linalg.svd(E)
+    u, _, vt = _svd(E)
     W = _W(E)
     R1 = torch.matmul(torch.matmul(u, W), vt)
     R2 = torch.matmul(torch.matmul(u, W.T), vt)
@@ -155,8 +172,6 @@ def estimate_relative_pose(
     ``pts1``/``pts2``: (B, M, 2) float32; ``valid``: (B, M) bool; ``K``:
     (3, 3).  ``draws``: optional (B, H, S) ranks (see the module docstring).
     """
-    if sample_size == 5:
-        raise NotImplementedError("SampleSize: 5 (the five-point solver) is not ported yet")
     B, M = valid.shape
     dev = pts1.device
     dtype = torch.float32
@@ -180,18 +195,32 @@ def estimate_relative_pose(
     sample_idx = torch.gather(rank_to_idx, 1, draws.to(dev, torch.int64).reshape(B, H * S))
 
     rows_all = _eight_point_rows(x1, x2)  # (B, M, 9)
-    rows = torch.gather(rows_all, 1, sample_idx[..., None].expand(B, H * S, 9)).reshape(B, H, S, 9)
-    E_hyp = _solve_e_from_rows(rows, project=False, sweeps=3)  # (B, H, 3, 3)
+    hyp_ok = None
+    if S == 5:
+        from tpuslam_torch.frontend.fivepoint import fivepoint_essential
+
+        idx2 = sample_idx[..., None].expand(B, H * S, 2)
+        s1 = torch.gather(x1, 1, idx2).reshape(B, H, S, 2)
+        s2 = torch.gather(x2, 1, idx2).reshape(B, H, S, 2)
+        E_cand, cand_ok = fivepoint_essential(s1, s2)  # (B, H, 10, 3, 3), (B, H, 10)
+        E_hyp = E_cand.reshape(B, H * 10, 3, 3)
+        hyp_ok = cand_ok.reshape(B, H * 10)
+    else:
+        rows = torch.gather(rows_all, 1, sample_idx[..., None].expand(B, H * S, 9)).reshape(B, H, S, 9)
+        E_hyp = _solve_e_from_rows(rows, project=False, sweeps=3)  # (B, H, 3, 3)
+    n_models = E_hyp.shape[1]
 
     # --- MSAC scores of every hypothesis (kernel 4).
     focal = 0.5 * (Kf[0, 0] + Kf[1, 1])
     thr = (inlier_threshold_px / focal) ** 2
     n_invalid = (~valid).sum(dim=-1, keepdim=True)
     P_op = build_msac_operand(x1, x2, valid, thr)
-    msac = msac_scores(E_hyp.reshape(B, H, 9), P_op) + n_invalid
+    msac = msac_scores(E_hyp.reshape(B, n_models, 9), P_op) + n_invalid
+    if hyp_ok is not None:  # masked five-point candidates rank last, set after the kernel
+        msac = torch.where(hyp_ok, msac, float(M + 1))
 
     # --- annealed LO-RANSAC from the best L hypotheses.
-    L = min(4, H)
+    L = min(4, n_models)
     top_h = torch.sort(msac, dim=-1, stable=True).indices[:, :L]
     E_cur = torch.gather(E_hyp, 1, top_h[..., None, None].expand(B, L, 3, 3))
     E_best_l = E_cur

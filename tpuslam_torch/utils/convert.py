@@ -22,6 +22,11 @@ so both packages can start from one map.  ``fold_inputs_from_numpy`` takes
 the arguments of a chunk fold (``update_map_chunk``'s, ``frame_ids`` to
 ``point_ok``), and ``sequence_result_to_numpy`` turns either package's
 ``SlamSystem.run_sequence`` output into numpy for comparison.
+
+Loop closure's state crosses too: ``vocabulary_from_numpy`` builds the
+port's ``Vocabulary`` from the arrays of a ``.npz`` both packages read,
+``keyframe_db_from_numpy`` takes the reference's ``KeyframeDB``, and
+``loop_result_to_numpy`` turns either package's ``LoopResult`` into numpy.
 """
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from tpuslam_torch.backend.loop_closure import KeyframeDB
 from tpuslam_torch.backend.map import AssocState, MapState
+from tpuslam_torch.backend.vocabulary import Vocabulary
 from tpuslam_torch.frontend.fast import KeypointSet
 
 _DETECTOR_DTYPES = {
@@ -154,6 +161,36 @@ def fold_inputs_from_numpy(inputs, device: torch.device | str = "cpu") -> dict[s
     return _state(inputs, _FOLD_DTYPES, device)
 
 
+_DB_DTYPES = {
+    "bow": torch.float32,
+    "xy": torch.float32,
+    "kp_valid": torch.bool,
+    "descriptors": torch.uint8,
+    "map_points": torch.float32,
+    "mp_valid": torch.bool,
+    "pose": torch.float32,
+    "ids": torch.int32,
+    "count": torch.int32,
+    "last_id": torch.int32,
+}
+
+
+def vocabulary_from_numpy(centroids, idf=None, coarse=None, device: torch.device | str = "cpu") -> Vocabulary:
+    """A vocabulary's arrays (flat, or tree with ``coarse``) → the port's ``Vocabulary`` on ``device``."""
+    return Vocabulary(np.asarray(centroids), None if idf is None else np.asarray(idf),
+                      None if coarse is None else np.asarray(coarse), device=device)
+
+
+def keyframe_db_from_numpy(db, device: torch.device | str = "cpu") -> KeyframeDB:
+    """The reference's ``KeyframeDB`` (or a mapping of its fields) → the port's."""
+    return KeyframeDB(**_state(db, _DB_DTYPES, device))
+
+
+def loop_result_to_numpy(res) -> dict:
+    """Either package's ``LoopResult`` → a dict of numpy arrays."""
+    return {name: _numpy(v) for name, v in _fields(res).items()}
+
+
 def _numpy(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
@@ -162,9 +199,12 @@ def sequence_result_to_numpy(out: dict) -> dict:
     """A ``run_sequence`` output (either package's) with arrays, and the map's fields, as numpy."""
     conv = {}
     for k, v in out.items():
-        if k == "map":
+        if k == "map" or (k == "db" and (hasattr(v, "_asdict") or isinstance(v, Mapping))):
             conv[k] = {name: _numpy(f) for name, f in _fields(v).items()}
-        elif k in ("loops", "ba_events", "pose_graph_applied", "db"):
+        elif k == "loops":
+            conv[k] = [{name: _numpy(f) if name == "relative_transform" else f for name, f in lp.items()}
+                       for lp in v]
+        elif k in ("ba_events", "pose_graph_applied", "db"):
             conv[k] = v
         else:
             conv[k] = _numpy(v)
