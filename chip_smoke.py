@@ -78,7 +78,34 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    ms on the run's keyframes; once, kernel 4 at relocalization's shape (2
    frames x 1024 five-point samples x 10 candidates, 1024 matches; masked
    candidates hold NaN) against its twin at rtol 1e-5 on the unmasked rows,
-   and the pose graph's PCG on a 300-node drift graph, card against CPU.
+   and the pose graph's PCG on a 300-node drift graph, card against CPU;
+10. stream, stream-pnp — the streaming driver ``SlamSystem.run`` with the
+   tree vocabulary over host numpy chunks shaped as ``FrameStream.batches``
+   yields them, staged on the card by ``device_prefetch``, in VO and in PnP
+   mode, a warm-up pass and a timed pass: the ``[slam-lc]`` gates (kernels
+   1-4 six launches each, kernel 5 none; ``pose_ok`` >= 90%; >= 1 verified
+   loop, the pose graph applied); frames/s beside ``run_sequence``'s in
+   this call; the run split after frame 48 through a checkpoint file
+   (``save_state``, ``load_state`` onto the card, ``run(resume=...)``):
+   integer fields, loops, keyframes, counters and the map's and DB's ids
+   identical, the raw trajectory bit-equal, the final (pose-graph) poses
+   bit-equal or, with the op that differs named, within R 1e-4 / t 1e-3;
+   the host-to-device time a chunk with and without prefetch;
+11. localize — ``SlamSystem(tracking="pnp", localization_only=True)``
+   through ``run(warm_start=...)`` against the map and DB of the
+   ``[stream-pnp]`` run, read back from its file, over the 96 frames,
+   over frames 40..95 (an unknown start: frame 0 bootstraps by
+   relocalization) and over 192 frames: every map and DB leaf bit-equal
+   after each run, no BA event, finite poses, ``pose_ok`` >= 90%, lock-in
+   within one chunk from frame 40 by relocalization and within 0.6 of the
+   mapping run's pose there (positions against the mapping run's over the
+   whole runs are printed, not held: ``PERF.md`` §6), kernel 4 at
+   relocalization's shape on the bootstrap chunk, that chunk's ``_reloc_chunk_pnp`` card
+   against CPU given the same draws (flags identical, R 1e-4, t 1e-3);
+   frames/s from scratch, the marginal rate (192 - 96) / (t192 - t96) and
+   ``max_memory_allocated`` over 96 and 192 frames; the memory a run's
+   result keeps on the card may grow by at most 4 MiB from 96 to 192.
+Each phase from 7 on prints its seconds.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -89,6 +116,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -123,6 +151,14 @@ NO_LIBRARY = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed_phase(label: str, fn, *args):
+    """``fn(*args)``, with the phase's seconds printed after it."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[{label}] phase took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def card_line() -> str:
@@ -1008,8 +1044,9 @@ def check_lc_card_equals_cpu(label, system, cpu_system, db, fids, kf_enabled, re
             "position_diff": pos, "bow_diff": bow, "host_syncs": syncs, "host_syncs_at": sync_at}
 
 
-def check_reloc_card_equals_cpu(label, system, cpu_system, db, result, valid, fids, m) -> dict:
-    """Relocalization of a chunk with blinded frames on the card and on the CPU, the same draws."""
+def check_reloc_card_equals_cpu(label, system, cpu_system, db, result, valid, fids, m,
+                                what: str = "a chunk with two noise-blinded frames") -> dict:
+    """Relocalization of a chunk with lost frames on the card and on the CPU, the same draws."""
     store = {}
     system.reloc_draw_fn, cpu_system.reloc_draw_fn = recorder(store, reloc_draw), replayer(store)
     fids_d = torch.tensor(fids, dtype=torch.int32, device="cuda")
@@ -1039,7 +1076,7 @@ def check_reloc_card_equals_cpu(label, system, cpu_system, db, result, valid, fi
         raise AssertionError(f"[{label}] relocalization on the card != CPU: rotation {rot}, position {pos}")
     require_one_read(label, "relocalization", sync_at, allowed=svd_site())
     need = int((valid & ~result.pose_ok).sum())
-    log(f"[{label}] relocalization card == CPU on a chunk with two noise-blinded frames: {need} frames lost, "
+    log(f"[{label}] relocalization card == CPU on {what}: {need} frames lost, "
         f"{int(g_ok.sum())} rescued (frames {torch.nonzero(g_ok).flatten().tolist()}); rotation diff {rot:.2e}, "
         f"position diff {pos:.2e}; {syncs} host sync(s), at {sync_at}")
     return {"lost": need, "rescued": int(g_ok.sum()), "rotation_diff": rot, "position_diff": pos,
@@ -1189,6 +1226,275 @@ def phase_slam_lc(camera, config_dir: Path, frames_np: np.ndarray, card: str, us
     return rec
 
 
+def host_batches(frames_np: np.ndarray, start: int = 0, stop: int | None = None):
+    """Chunks of frames[start:stop] shaped as ``FrameStream.batches`` yields them: host numpy, the last
+    padded by repeating its last frame, ``valid`` marking the real ones."""
+    stop = len(frames_np) if stop is None else stop
+    for s in range(start, stop, BATCH):
+        blk = frames_np[s:min(s + BATCH, stop)]
+        nb = len(blk)
+        if nb < BATCH:
+            blk = np.concatenate([blk, np.repeat(blk[-1:], BATCH - nb, 0)])
+        yield blk, np.arange(s, s + BATCH, dtype=np.float64), np.arange(BATCH) < nb
+
+
+def prefetch_ms(frames_np: np.ndarray, chunk_ms: float) -> dict:
+    """Host-to-device time a chunk: a synchronous copy from pageable memory, against what
+    ``device_prefetch`` leaves exposed when each chunk is followed by ``chunk_ms`` of device work."""
+    from tpuslam_torch.pre.stream import device_prefetch
+
+    chunks = list(host_batches(frames_np))
+    sync_ms = []
+    for f, _, _ in chunks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f_dev = torch.from_numpy(f).to("cuda")
+        torch.cuda.synchronize()
+        sync_ms.append(1e3 * (time.perf_counter() - t0))
+    del f_dev
+    cycles = int(chunk_ms * SLEEP_CYCLES)  # SLEEP_CYCLES is ~1 ms of card time
+
+    def consume(it) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f, _, _ in it:
+            torch.cuda._sleep(cycles)  # a chunk's work on the consumer's stream
+            f.view(-1)[:1].add_(0)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    staged = [(torch.from_numpy(f).cuda(), s, v) for f, s, v in chunks]
+    torch.cuda.synchronize()
+    work = min(consume(iter(staged)) for _ in range(2))
+    with_prefetch = min(consume(device_prefetch(iter(chunks), "cuda")) for _ in range(2))
+    without = min(consume((torch.from_numpy(f).to("cuda"), s, v) for f, s, v in chunks) for _ in range(2))
+    n = len(chunks)
+    return {"sync_copy_ms": float(np.median(sync_ms)), "work_ms_per_chunk": work / n,
+            "exposed_ms_with_prefetch": (with_prefetch - work) / n, "exposed_ms_without": (without - work) / n,
+            "chunk_mb": chunks[0][0].nbytes / 2**20}
+
+
+def ba_folded(ckpt: dict, system) -> np.ndarray:
+    """A run's raw trajectory with its BA snapshots folded in, in the map's world frame (no pose graph)."""
+    poses = np.asarray(ckpt["raw_poses"])
+    for e in range(len(ckpt["ba_frame"])):
+        poses = system._apply_ba_snapshot({k: np.asarray(ckpt[f"ba_{k}"][e]) for k in ("kf_id", "kf_valid", "kf_R",
+                                                                                        "kf_t")}, poses)
+    return poses
+
+
+def tree_leaves(tree) -> list:
+    from tpuslam_torch.utils.checkpoint import flatten
+
+    return [x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x) for x in flatten(tree)]
+
+
+def phase_stream(camera, config_dir: Path, frames_np: np.ndarray, card: str, uses, tracking: str,
+                 ckpt_dir: Path) -> dict:
+    """``SlamSystem.run`` over host chunks through ``device_prefetch``; split through a checkpoint file."""
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.model.system import SlamSystem
+    from tpuslam_torch.utils.checkpoint import load_state, save_state
+
+    label = "stream" if tracking == "vo" else "stream-pnp"
+    cfg = SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH)
+    system = SlamSystem(camera, cfg, vocabulary=config_dir / "vocabulary_tree.npz", tracking=tracking, device="cuda")
+    n_chunks = N_FRAMES // BATCH
+    system.run(host_batches(frames_np), seed=1)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = system.run(host_batches(frames_np), seed=0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launches(label, counts, {**{k: n_chunks for k in uses}, "fused_frontend_nms_batch": 0})
+    poses, pose_ok, loops = out["poses"], out["pose_ok"], out["loops"]
+    ok_frac = float(pose_ok[1:].mean())
+    if not np.isfinite(poses).all() or poses.shape != (N_FRAMES, 4, 4):
+        raise AssertionError(f"[{label}] poses of shape {poses.shape}, finite {np.isfinite(poses).all()}")
+    if ok_frac < 0.9 or not loops or not out["pose_graph_applied"]:
+        raise AssertionError(f"[{label}] pose_ok {ok_frac:.3f}, {len(loops)} loops, pose graph "
+                             f"{out['pose_graph_applied']}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.run_sequence(frames_np, seed=0)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    fps, seq_fps = N_FRAMES / run_s, N_FRAMES / seq_s
+    log(f"[{label}] run() {N_FRAMES} frames batch {BATCH} through device_prefetch: {fps:.2f} frames/s "
+        f"(run_sequence {seq_fps:.2f} in this call); pose_ok {ok_frac:.3f}; {len(loops)} verified loops, pose graph "
+        f"applied; {int(out['reloc_ok'].sum())} relocalized; BA at frames {[e['frame_id'] for e in out['ba_events']]} "
+        f"on {card}")
+
+    # split after frame 48: a checkpoint file, loaded onto the card, and run(resume=...)
+    first = system.run(host_batches(frames_np, 0, N_FRAMES // 2), seed=0)
+    path = ckpt_dir / f"{label}-half.npz"
+    save_state(path, slam=first["checkpoint"])
+    resume = load_state(path, device="cuda", slam=system.checkpoint_template())["slam"]
+    split = system.run(host_batches(frames_np, N_FRAMES // 2), seed=0, resume=resume)
+    ck, sk = out["checkpoint"], split["checkpoint"]
+    for name in ("pose_ok", "reloc_ok", "num_matches", "num_inliers"):
+        if not np.array_equal(out[name], split[name]):
+            raise AssertionError(f"[{label}] split run != single run: {name}")
+    if [(lp["frame_id"], lp["matched_keyframe_id"]) for lp in loops] != \
+            [(lp["frame_id"], lp["matched_keyframe_id"]) for lp in split["loops"]]:
+        raise AssertionError(f"[{label}] split run != single run: loops")
+    for name in ("kf_fids", "counters", "raw_poses", "ba_frame", "loops_frame", "loops_matched", "loops_ninl"):
+        if not np.array_equal(ck[name], sk[name]):
+            raise AssertionError(f"[{label}] split run != single run: checkpoint {name}")
+    for name, fields in (("world_map", ("kf_id", "kf_valid", "point_valid", "point_birth", "obs_mask", "kf_count",
+                                        "point_count")), ("db", ("ids", "count", "last_id", "kp_valid", "mp_valid"))):
+        for f in fields:
+            if not torch.equal(getattr(ck[name], f), getattr(sk[name], f)):
+                raise AssertionError(f"[{label}] split run != single run: {name}.{f}")
+    leaves_equal = all(np.array_equal(a, b) for a, b in zip(tree_leaves(ck), tree_leaves(sk)))
+    final_equal = bool(np.array_equal(out["poses"], split["poses"]))
+    rec = {"fps": fps, "run_sequence_fps": seq_fps, "pose_ok_share": ok_frac, "loops": len(loops),
+           "reloc_frames": int(out["reloc_ok"].sum()), "ba_events": len(out["ba_events"]), "launches": counts,
+           "split_raw_poses_identical": True, "split_checkpoint_identical": leaves_equal,
+           "split_final_poses_identical": final_equal}
+    if not final_equal:
+        # which op: the pose graph fold run twice on the same inputs
+        graph = [system._apply_pose_graph(ba_folded(ck, system), [int(f) for f in ck["kf_fids"]], loops)
+                 for _ in range(2)]
+        rot = float(np.abs(out["poses"][:, :3, :3] - split["poses"][:, :3, :3]).max())
+        pos = float(np.abs(out["poses"][:, :3, 3] - split["poses"][:, :3, 3]).max())
+        rec.update(split_final_rot_diff=rot, split_final_pos_diff=pos,
+                   pose_graph_twice_identical=bool(np.array_equal(*graph)))
+        log(f"[{label}] final poses of the split run differ from the single run's: R {rot:.2e}, t {pos:.2e}; "
+            f"the pose graph fold twice on the same inputs identical: {rec['pose_graph_twice_identical']}")
+        if rot > 1e-4 or pos > 1e-3:
+            raise AssertionError(f"[{label}] split run's final poses differ: R {rot}, t {pos}")
+    log(f"[{label}] split after frame {N_FRAMES // 2} through {path.name} (load_state on the card): integer fields, "
+        f"loops, keyframes, counters, map and DB ids identical; raw trajectory bit-equal; final poses bit-equal "
+        f"{final_equal}; every checkpoint leaf bit-equal {leaves_equal}")
+    if tracking == "pnp":
+        rec["checkpoint_path"] = ckpt_dir / "stream-pnp.npz"
+        save_state(rec["checkpoint_path"], slam=ck)
+        rec["mapping_poses"] = ba_folded(ck, system)
+    rec["prefetch"] = prefetch_ms(frames_np, 1e3 * run_s / n_chunks)
+    p = rec["prefetch"]
+    log(f"[{label}] host to device a {p['chunk_mb']:.2f} MB chunk: synchronous copy from pageable memory "
+        f"{p['sync_copy_ms']:.3f} ms; with {p['work_ms_per_chunk']:.2f} ms of device work a chunk the copy leaves "
+        f"{p['exposed_ms_without']:.3f} ms a chunk exposed without prefetch, {p['exposed_ms_with_prefetch']:.3f} ms "
+        f"with device_prefetch")
+    return rec
+
+
+def phase_localize(camera, config_dir: Path, frames_np: np.ndarray, card: str, uses, stream_pnp: dict) -> dict:
+    """Localization against the frozen map and DB of the ``[stream-pnp]`` run, loaded from its file."""
+    import tpuslam_torch.frontend.pose as fpose
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.model.system import SlamSystem
+    from tpuslam_torch.utils.checkpoint import load_state
+
+    label = "localize"
+    cfg = SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH)
+    kw = dict(vocabulary=config_dir / "vocabulary_tree.npz", tracking="pnp", localization_only=True,
+              enable_pose_graph=False)
+    system = SlamSystem(camera, cfg, device="cuda", **kw)
+    loaded = load_state(stream_pnp["checkpoint_path"], device="cuda", slam=system.checkpoint_template())["slam"]
+    warm = {"map": loaded["world_map"], "db": loaded["db"]}
+    frozen = tree_leaves((loaded["world_map"], loaded["db"]))
+    mapping = stream_pnp["mapping_poses"]
+    n_chunks = N_FRAMES // BATCH
+
+    def localize(start: int, stop: int, seed: int):
+        frames = frames_np if stop <= N_FRAMES else load_frames(stop)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = system.run(host_batches(frames, start, stop), seed=seed, warm_start=warm)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        mem = {"peak": torch.cuda.max_memory_allocated(), "kept": torch.cuda.memory_allocated() - before}
+        after = tree_leaves((res["checkpoint"]["world_map"], res["checkpoint"]["db"]))
+        if not all(np.array_equal(a, b) for a, b in zip(after, frozen)) or len(after) != len(frozen):
+            raise AssertionError(f"[{label}] frames {start}..{stop - 1}: the frozen map or DB changed")
+        ok = res["pose_ok"]
+        if res["ba_events"] or not np.isfinite(res["poses"]).all() or ok[1:].mean() < 0.9:
+            raise AssertionError(f"[{label}] frames {start}..{stop - 1}: BA events {res['ba_events']}, finite poses "
+                                 f"{np.isfinite(res['poses']).all()}, pose_ok {ok[1:].mean():.3f}")
+        lockin = int(np.argmax(ok))
+        # each frame against the mapping run's pose of the same clip frame (a measurement: see PERF.md)
+        n = min(stop, N_FRAMES) - start
+        err = np.linalg.norm(res["poses"][:n, :3, 3] - mapping[start:start + n, :3, 3], axis=1)
+        return res, secs, lockin, err, mem
+
+    system.run(host_batches(frames_np, 0, BATCH), seed=1, warm_start=warm)  # warm-up
+    reset_launch_counts()
+    res96, t96, lock96, err96, mem96 = localize(0, N_FRAMES, seed=1)
+    counts = launch_counts()
+    check_launches(label, counts, {**{k: n_chunks for k in uses if k != "msac_scores"}, "msac_scores": None,
+                                   "fused_frontend_nms_batch": 0})
+
+    # an unknown start: frame 40 of the clip is frame 0 of the stream, locked in by relocalization
+    shapes = []
+    msac = fpose.msac_scores
+
+    def recorded(E, P, *args, **kw):
+        shapes.append(tuple(E.shape[:2]))
+        return msac(E, P, *args, **kw)
+
+    fpose.msac_scores = recorded
+    try:
+        res40, t40, lock40, err40, _ = localize(40, N_FRAMES, seed=2)
+    finally:
+        fpose.msac_scores = msac
+    # the reference's bar (tests/test_localization.py) where the loaded state fixes the pose: the
+    # frame that locked in by relocalization against the DB, within 0.6 of the mapping run's
+    if lock40 >= BATCH or not res40["reloc_ok"][lock40] or err40[lock40] > 0.6:
+        raise AssertionError(f"[{label}] frames 40..95: lock-in at {lock40} (relocalized "
+                             f"{bool(res40['reloc_ok'][lock40])}), {err40[lock40]:.3f} from the mapping run's pose")
+    if len(shapes) < 2 or shapes[0][0] != BATCH or shapes[1] != (2, 10 * 1024):  # two-view, then relocalization
+        raise AssertionError(f"[{label}] the bootstrap chunk's kernel 4 calls: {shapes[:3]}")
+
+    # the bootstrap chunk's relocalization on the card and on the CPU, the same draws
+    chunk = torch.from_numpy(frames_np[40:40 + BATCH]).cuda()
+    valid = torch.ones(BATCH, dtype=torch.bool)
+    st0 = system.pipeline.initial_pnp_state()._replace(map=loaded["world_map"])
+    result, st2 = system.pipeline.process_chunk_pnp(chunk, valid, st0, 0)
+    cpu_system = SlamSystem(camera, cfg, device="cpu", **kw)
+    boot = check_reloc_card_equals_cpu(label, system, cpu_system, loaded["db"], result, valid.cuda(),
+                                       list(range(BATCH)), st2.map, what="the bootstrap chunk (frames 40..55)")
+    if not boot["rescued"]:
+        raise AssertionError(f"[{label}] the bootstrap chunk rescued no frame")
+
+    res192, t192, lock192, _, mem192 = localize(0, 2 * N_FRAMES, seed=1)
+    # what a run keeps on the card (its result alive) may grow only by its per-chunk records
+    if mem192["kept"] - mem96["kept"] > 4 * 2**20:
+        raise AssertionError(f"[{label}] device memory kept by the run grew from {mem96['kept']} to "
+                             f"{mem192['kept']} bytes with the stream")
+    rec = {"fps_96": N_FRAMES / t96, "marginal_fps": N_FRAMES / max(t192 - t96, 1e-9), "seconds_96": t96,
+           "seconds_192": t192, "pose_ok_share_96": float(res96["pose_ok"].mean()),
+           "relocalizations_96": int(res96["reloc_ok"].sum()), "lockin_96": lock96, "lockin_from_40": lock40,
+           "relocalizations_from_40": int(res40["reloc_ok"].sum()), "pose_ok_share_192": float(res192["pose_ok"].mean()),
+           "lockin_position_err_from_40": float(err40[lock40]),
+           "position_err_vs_mapping_96": {"max": float(err96.max()), "median": float(np.median(err96)),
+                                          "first_chunk_max": float(err96[:BATCH].max())},
+           "position_err_vs_mapping_from_40": {"max": float(err40.max()), "median": float(np.median(err40)),
+                                               "first_chunk_max": float(err40[:BATCH].max())},
+           "max_memory_allocated_96": mem96["peak"], "max_memory_allocated_192": mem192["peak"],
+           "memory_kept_96": mem96["kept"], "memory_kept_192": mem192["kept"], "bootstrap_card_vs_cpu": boot,
+           "launches": counts}
+    log(f"[{label}] frozen map and DB of [stream-pnp] from its file: 96 frames {rec['fps_96']:.2f} frames/s from "
+        f"scratch, pose_ok {rec['pose_ok_share_96']:.3f}, {rec['relocalizations_96']} relocalized, lock-in at frame "
+        f"{lock96}; from frame 40 lock-in at stream frame {lock40} by relocalization, {err40[lock40]:.3f} from the "
+        f"mapping run's pose ({rec['relocalizations_from_40']} relocalized); 192 frames pose_ok "
+        f"{rec['pose_ok_share_192']:.3f}; kernel 4 at {shapes[1]} x 1024 matches on the bootstrap chunk; marginal "
+        f"rate (192 - 96) / (t192 - t96) = {rec['marginal_fps']:.2f} frames/s; positions against the mapping run's "
+        f"(same clip frame): 96-frame run max {err96.max():.3f} median {np.median(err96):.3f} (first chunk "
+        f"{err96[:BATCH].max():.3f}), from frame 40 max {err40.max():.3f} median {np.median(err40):.3f} (first chunk "
+        f"{err40[:BATCH].max():.3f}); map and DB bit-equal after every run; no BA event; max_memory_allocated "
+        f"{mem96['peak'] / 2**20:.1f} MiB over 96 frames, {mem192['peak'] / 2**20:.1f} MiB over 192 (kept by the "
+        f"run's result: {mem96['kept'] / 2**10:.1f} KiB, {mem192['kept'] / 2**10:.1f} KiB) on {card}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1261,17 +1567,30 @@ def main() -> int:
         f"{pyr_fps[True]}, with kernel 1 + NMS {pyr_fps[False]} on {card}")
 
     # PnP tracking: configs/ with tracking="pnp", kernels 1-4 in its two-view stage.
-    pnp = phase_pnp(camera, config_dir, chunks, valid, card, main_uses)
+    pnp = timed_phase("pnp", phase_pnp, camera, config_dir, chunks, valid, card, main_uses)
 
     # The SLAM back end (loop closure off): VO, then PnP tracking, kernels 1-4 in the two-view stage.
     main_chunk_ms = 1e3 * N_FRAMES / fps / n_chunks
-    slam = {tracking: phase_slam(camera, config_dir, frames_np, card, main_uses, tracking, main_chunk_ms)
+    slam = {tracking: timed_phase(f"slam{'' if tracking == 'vo' else '-pnp'}", phase_slam, camera, config_dir,
+                                  frames_np, card, main_uses, tracking, main_chunk_ms)
             for tracking in ("vo", "pnp")}
 
     # Full SLAM with loop closure, relocalization and the pose graph: VO, then PnP tracking.
-    slam_lc = {tracking: phase_slam_lc(camera, config_dir, frames_np, card, main_uses, tracking, main_chunk_ms)
+    slam_lc = {tracking: timed_phase(f"slam-lc{'' if tracking == 'vo' else '-pnp'}", phase_slam_lc, camera,
+                                     config_dir, frames_np, card, main_uses, tracking, main_chunk_ms)
                for tracking in ("vo", "pnp")}
     pose_graph = check_pose_graph_pcg()
+
+    # The streaming driver through device_prefetch, VO then PnP, each split through a checkpoint file;
+    # then localization against the frozen map and DB of the PnP run, read back from its file.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ckpt_dir:
+        stream = {tracking: timed_phase("stream" if tracking == "vo" else "stream-pnp", phase_stream, camera,
+                                        config_dir, frames_np, card, main_uses, tracking, Path(ckpt_dir))
+                  for tracking in ("vo", "pnp")}
+        localize = timed_phase("localize", phase_localize, camera, config_dir, frames_np, card, main_uses,
+                               stream["pnp"])
+    for key in ("checkpoint_path", "mapping_poses"):
+        stream["pnp"].pop(key)
 
     for r in records:
         on_pyramid = r["name"] == "fused_frontend_nms_batch"
@@ -1284,7 +1603,10 @@ def main() -> int:
                                  "slam": slam["vo"]["launches"][r["name"]],
                                  "slam_pnp": slam["pnp"]["launches"][r["name"]],
                                  "slam_lc": slam_lc["vo"]["launches"][r["name"]],
-                                 "slam_lc_pnp": slam_lc["pnp"]["launches"][r["name"]]}
+                                 "slam_lc_pnp": slam_lc["pnp"]["launches"][r["name"]],
+                                 "stream": stream["vo"]["launches"][r["name"]],
+                                 "stream_pnp": stream["pnp"]["launches"][r["name"]],
+                                 "localize": localize["launches"][r["name"]]}
     # the main path's kernel time per chunk, from the kernels phase, against its timed chunk
     chunk_ms = main_chunk_ms
     kernel_ms = sum(r["ms"] * r["launches_per_chunk"] for r in records if r["path"].startswith("main"))
@@ -1311,7 +1633,8 @@ def main() -> int:
                     "pyramid_chunk_ms": pyr_chunk_ms, "pyramid_kernel_ms_per_chunk": pyr_kernel_ms,
                     "pyramid_fps_nms_fused": pyr_fps[True], "pyramid_fps_kernel1": pyr_fps[False],
                     "pnp": pnp, "slam": slam["vo"], "slam_pnp": slam["pnp"], "slam_lc": slam_lc["vo"],
-                    "slam_lc_pnp": slam_lc["pnp"], "pose_graph_pcg": pose_graph}))
+                    "slam_lc_pnp": slam_lc["pnp"], "pose_graph_pcg": pose_graph, "stream": stream["vo"],
+                    "stream_pnp": stream["pnp"], "localize": localize}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

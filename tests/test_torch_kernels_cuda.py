@@ -34,6 +34,13 @@ identical, BoW 1e-6), relocalization (ok and ids identical, poses 1e-4 /
 with the host exactly once (its one read), relocalization only where
 ``torch.linalg.svd`` does (``set_sync_debug_mode("warn")``, counted after a
 first call has built the Jacobi schedules on the card).
+
+The streaming driver: ``device_prefetch`` stages distinct chunks bit-equal
+(with its source overwritten after each yield, at depths 1-3),
+``load_state(device="cuda")`` puts every array leaf on the card (a host
+counter stays an ``int``), and ``SlamSystem.run`` split through a
+checkpoint equals the uninterrupted run bit for bit on the card, in VO and
+PnP mode, at small shapes.
 """
 
 from pathlib import Path
@@ -845,3 +852,98 @@ def test_pose_graph_pcg_card_equals_cpu(dev, dtype):
     torch.testing.assert_close(got.nodes.cpu(), want.nodes, rtol=0, atol=tol)
     loop_gap = lambda nodes: float((torch.linalg.inv(nodes[0]) @ nodes[-1] - g.edge_T[299])[:3, 3].norm())  # noqa: E731
     assert loop_gap(want.nodes) < 0.05 * loop_gap(g.nodes)
+
+
+def _chunk(i: int, shape=(4, 376, 1241)) -> np.ndarray:
+    return np.random.default_rng(1000 + i).integers(0, 256, shape, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_device_prefetch_distinct_chunks_bit_equal(dev, depth):
+    """Every staged chunk equals its host source, read at once and again after all later copies
+    (a pinned buffer refilled under a running copy would corrupt an earlier chunk); the source
+    array is overwritten after each yield, so only the staged copy can hold the chunk."""
+    from tpuslam_torch.pre.stream import device_prefetch
+
+    n = 10
+    src = np.empty((4, 376, 1241), np.uint8)
+
+    def batches():
+        for i in range(n):
+            src[...] = _chunk(i)
+            yield src, np.full(4, float(i)), np.ones(4, bool)
+
+    staged = []
+    for i, (frames, stamps, valid) in enumerate(device_prefetch(batches(), device=dev, depth=depth)):
+        assert frames.is_cuda and frames.dtype == torch.uint8 and stamps[0] == i
+        torch.cuda._sleep(200_000)  # the consumer's work on its stream, while later copies run
+        assert torch.equal(frames.cpu(), torch.from_numpy(_chunk(i)))
+        staged.append(frames)
+    torch.cuda.synchronize()
+    assert len(staged) == n
+    for i, frames in enumerate(staged):
+        assert torch.equal(frames.cpu(), torch.from_numpy(_chunk(i))), i
+
+
+def test_load_state_places_every_leaf_on_the_card(dev, tmp_path):
+    from tpuslam_torch.backend.loop_closure import empty_db
+    from tpuslam_torch.backend.map import empty_map
+    from tpuslam_torch.frontend.fast import KeypointSet
+    from tpuslam_torch.model.slam import VoState
+    from tpuslam_torch.utils.checkpoint import flatten, load_state, save_state
+
+    k = 16
+    vo = VoState(KeypointSet(torch.rand(k, 2), torch.rand(k), torch.rand(k), torch.rand(k) > 0.5),
+                 torch.randint(0, 256, (k, 32), dtype=torch.uint8), torch.tensor(True), torch.eye(4), 41,
+                 torch.rand(k), torch.rand(k) > 0.5)
+    trees = {"vo": vo, "map": empty_map(4, 64), "db": empty_db(4, 16, k, 32), "poses": np.eye(4)[None]}
+    save_state(tmp_path / "ckpt.npz", **trees)
+    back = load_state(tmp_path / "ckpt.npz", device=dev, **trees)
+    for name, tree in trees.items():
+        leaves = flatten(back[name])
+        assert len(leaves) == len(flatten(tree))
+        for got, want in zip(leaves, flatten(tree)):
+            if isinstance(want, int):
+                assert type(got) is int and got == want
+            else:
+                assert got.is_cuda and torch.equal(got.cpu(), torch.as_tensor(want)), name
+
+
+@pytest.mark.parametrize("tracking", ["vo", "pnp"])
+def test_split_run_equals_single_run_on_card(dev, tmp_path, tracking):
+    """``SlamSystem.run`` at small shapes (K 512, 256 hypotheses, batch 4, the tree vocabulary) over
+    the ten fixtures, split after frame 8 through a checkpoint loaded onto the card: the raw and the
+    folded trajectory, the stats and every checkpoint leaf bit-equal to the uninterrupted run."""
+    import dataclasses
+
+    from tpuslam_torch.common.camera import Camera
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.model.system import SlamSystem
+    from tpuslam_torch.utils.checkpoint import flatten, load_state, save_state
+
+    cfg_dir = IMAGES.parent.parent.parent / "configs"
+    cfg = SlamConfig.from_yaml_dir(cfg_dir, batch_size=4)
+    cfg = dataclasses.replace(cfg, detector=dataclasses.replace(cfg.detector, max_keypoints=512),
+                              pose=dataclasses.replace(cfg.pose, num_hypotheses=256))
+    system = SlamSystem(Camera.from_yaml(cfg_dir / "camera.yml"), cfg, vocabulary=cfg_dir / "vocabulary_tree.npz",
+                        tracking=tracking, device=dev)
+    imgs = np.stack([decode_png_gray8(p) for p in sorted(IMAGES.glob("*.png"))])
+
+    def batches(start, stop):
+        for s in range(start, stop, 4):
+            blk = imgs[s:min(s + 4, stop)]
+            nb = len(blk)
+            yield np.concatenate([blk, np.repeat(blk[-1:], 4 - nb, 0)]), np.zeros(4), np.arange(4) < nb
+
+    single = system.run(batches(0, 10))
+    first = system.run(batches(0, 8))
+    save_state(tmp_path / "ckpt.npz", slam=first["checkpoint"])
+    resume = load_state(tmp_path / "ckpt.npz", device=dev, slam=system.checkpoint_template())["slam"]
+    split = system.run(batches(8, 10), resume=resume)
+    assert single["pose_ok"][1:].all()
+    for k in ("poses", "pose_ok", "reloc_ok", "num_matches", "num_inliers"):
+        np.testing.assert_array_equal(split[k], single[k], err_msg=k)
+    assert split["ba_events"] == single["ba_events"]
+    for i, (g, w) in enumerate(zip(flatten(split["checkpoint"]), flatten(single["checkpoint"]))):
+        g, w = (x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x) for x in (g, w))
+        np.testing.assert_array_equal(g, w, err_msg=f"checkpoint leaf {i}")

@@ -45,6 +45,7 @@ from test_torch_ba import one_torch_thread  # noqa: F401 (autouse: the port on o
 from tpuslam.common.camera import Camera as JCamera
 from tpuslam.config.schema import SlamConfig as JSlamConfig
 from tpuslam.model.system import SlamSystem as JSystem
+from tpuslam_torch.cli import main as cli_main
 from tpuslam_torch.common.camera import Camera as TCamera
 from tpuslam_torch.config.schema import SlamConfig as TSlamConfig
 from tpuslam_torch.model.system import SlamSystem as TSystem
@@ -156,24 +157,30 @@ def test_system_map_multi_observations(runs):
 
 
 def test_unported_options_raise(data_dir):
-    """Loop closure constructs (a vocabulary with enable_loop_closure); the streaming run(), warm_start
-    and localization are later slices."""
+    """Loop closure constructs; the streaming run(), warm_start and localization are ported (an empty
+    stream gives an empty trajectory; localization needs PnP tracking and a map); the CLI refuses what
+    is still unported (--timeshard, --plot: ROADMAP Queue 1 items 9-10)."""
     cfg_dir = data_dir.parent.parent / "configs"
     cam = TCamera.from_yaml(cfg_dir / "camera.yml")
     cfg = TSlamConfig.from_yaml_dir(cfg_dir)
     lc = TSystem(cam, cfg, vocabulary=cfg_dir / "vocabulary_tree.npz", device="cpu")
     assert lc.loop_closure is not None and lc.loop_closure.vocabulary.num_words == 4096
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        lc.run(iter([]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TSystem(cam, cfg, vocabulary=None, tracking="pnp", localization_only=True, device="cpu")
+    empty = lc.run(iter([]))
+    assert empty["poses"].shape == (0, 4, 4) and empty["loops"] == [] and empty["ba_events"] == []
+    assert empty["checkpoint"]["counters"].tolist() == [0, 0, 0]
+    with pytest.raises(ValueError, match="pnp"):
+        TSystem(cam, cfg, vocabulary=None, tracking="vo", localization_only=True, device="cpu")
     with pytest.raises(ValueError):
         TSystem(cam, cfg, vocabulary=None, tracking="slam", device="cpu")
     sysm = TSystem(cam, cfg, vocabulary=cfg_dir / "vocabulary.npz", enable_loop_closure=False, device="cpu")
     assert sysm.loop_closure is None
     assert sysm.pipeline.with_features and sysm.pipeline.max_map_points == 4096
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        sysm.run_sequence(np.zeros((1, 8, 8), np.uint8), warm_start={"map": None})
+    loc = TSystem(cam, cfg, vocabulary=None, tracking="pnp", localization_only=True, device="cpu")
+    with pytest.raises(ValueError, match="warm_start"):
+        loc.run_sequence(np.zeros((1, 8, 8), np.uint8), warm_start={"db": None})
+    for flag in (["--timeshard", "2"], ["--plot", "plot.png"]):
+        with pytest.raises(SystemExit):
+            cli_main(["-c", str(cfg_dir), "-v", str(data_dir / "images"), "--device", "cpu", *flag])
 
 
 def test_system_defaults_to_cuda(data_dir):

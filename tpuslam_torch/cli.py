@@ -1,9 +1,10 @@
-"""tpuslam_torch CLI — monocular tracking over an image directory.
+"""tpuslam_torch CLI — monocular tracking or full SLAM over an image directory.
 
-The VO and PnP-tracking subset of ``tools/cli.py``::
+The subset of ``tools/cli.py`` the port runs::
 
     python -m tpuslam_torch.cli -c configs -v tests/data/images -o traj.txt \\
-        [--tracking vo|pnp] [--batch-size 16] [--stats] [--device cpu] [--nms-fused]
+        [--tracking vo|pnp] [--batch-size 16] [--stats] [--device cpu] [--nms-fused] \\
+        [--slam [--vocabulary V]] [--save-state S.npz] [--resume S.npz] [--localize S.npz]
 
 writes a KITTI-format trajectory (12 values per row).  It runs on the card
 unless ``--device cpu`` is given; without a card it fails.  ``--stats`` prints
@@ -12,6 +13,16 @@ one JSON line with the frame count, wall time and pose statistics.
 detects with kernel 5 (blur + FAST + NMS in one pass) where a level allows.
 ``--tracking pnp`` tracks each frame against a persistent landmark map
 (``SlamPipeline.run_pnp``) instead of chaining scaled two-view poses.
+
+``--slam`` streams the frames through ``SlamSystem.run``: keyframes,
+windowed bundle adjustment, loop closure with the vocabulary (default: the
+config directory's ``vocabulary_tree.npz``, else ``vocabulary.npz``) and the
+pose graph.  ``--save-state`` writes a checkpoint of the run and
+``--resume`` continues the stream from one, so that the split run writes
+the uninterrupted run's trajectory (at the same batch size).
+``--localize CKPT`` is a mode of its own: it tracks the stream against the
+map and keyframe DB of a ``--slam --tracking pnp`` checkpoint, frozen, an
+unknown start pose bootstrapping by relocalization.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from tpuslam_torch.config.schema import SlamConfig
 from tpuslam_torch.model.slam import SlamPipeline
 from tpuslam_torch.post.trajectory import save_kitti_trajectory
 from tpuslam_torch.pre.stream import FrameStream
+from tpuslam_torch.utils.checkpoint import load_state, save_state
 
 
 def _limited(batches, limit: int):
@@ -42,7 +54,7 @@ def _limited(batches, limit: int):
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
-        prog="tpuslam_torch", description="Monocular visual odometry (PyTorch/CUDA port)"
+        prog="tpuslam_torch", description="Monocular visual odometry and SLAM (PyTorch/CUDA port)"
     )
     parser.add_argument("-c", "--config", required=True,
                         help="config directory holding camera.yml, feature_detector.yml, ...")
@@ -54,13 +66,24 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--frame-skip", type=int, default=0)
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--max-frames", type=int, default=0,
-                        help="stop after this many frames (0 = all)")
+                        help="stop after the chunk that reaches this many frames (0 = all)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda; pass cpu to run without a card)")
     parser.add_argument("--tracking", choices=["vo", "pnp"], default="vo",
                         help="vo: chained scaled two-view poses; pnp: absolute PnP against a landmark map")
     parser.add_argument("--nms-fused", action="store_true",
                         help="detect with the fused blur+FAST+NMS kernel where a level allows it")
+    parser.add_argument("--slam", action="store_true",
+                        help="full SLAM: keyframes, windowed bundle adjustment, loop closure, pose graph")
+    parser.add_argument("--vocabulary", default=None,
+                        help="BoW vocabulary .npz (default: the config directory's vocabulary_tree.npz, "
+                             "else vocabulary.npz)")
+    parser.add_argument("--save-state", default=None, help="write a checkpoint of the run (.npz)")
+    parser.add_argument("--resume", default=None,
+                        help="continue from a --save-state checkpoint of the same mode at its saved frame")
+    parser.add_argument("--localize", default=None, metavar="CKPT",
+                        help="track against the frozen map and keyframe DB of a --slam --tracking pnp "
+                             "checkpoint (no inserts, no BA; the start bootstraps by relocalization)")
     parser.add_argument("--stats", action="store_true", help="print run stats as JSON")
     args = parser.parse_args(argv)
 
@@ -72,32 +95,106 @@ def main(argv: list[str] | None = None) -> int:
     config = SlamConfig.from_yaml_dir(
         cfg_dir, frame_skip=args.frame_skip, batch_size=args.batch_size
     )
-    pipeline = SlamPipeline(
-        camera, config, tracking=args.tracking, device=args.device, nms_fused=args.nms_fused
-    )
+    tree = cfg_dir / "vocabulary_tree.npz"
+    vocab = args.vocabulary or (tree if tree.is_file() else cfg_dir / "vocabulary.npz")
     stream = FrameStream(args.stream, frame_skip=args.frame_skip)
+
+    def batches(start_frame: int = 0):
+        it = stream.batches(args.batch_size, start_frame=start_frame)
+        return _limited(it, args.max_frames) if args.max_frames else it
+
+    if args.localize:
+        if args.slam or args.resume or args.save_state:
+            parser.error("--localize is its own mode (no --slam/--resume/--save-state)")
+        from tpuslam_torch.model.system import SlamSystem
+
+        system = SlamSystem(camera, config, vocabulary=vocab, tracking="pnp", localization_only=True,
+                            device=args.device)
+        loaded = load_state(args.localize, device=system.device, slam=system.checkpoint_template())["slam"]
+        log.info("Localization: %s against the frozen map and DB of %s on %s", args.stream, args.localize,
+                 args.device)
+        t0 = time.perf_counter()
+        result = system.run(batches(), warm_start={"map": loaded["world_map"], "db": loaded["db"]})
+        dt = time.perf_counter() - t0
+        save_kitti_trajectory(result["poses"], args.output)
+        log.info("Trajectory written to %s", args.output)
+        if args.stats:
+            n = len(result["poses"])
+            print(json.dumps({
+                "frames": n,
+                "seconds": dt,
+                "fps": n / dt if dt > 0 else 0.0,
+                "device": str(system.device),
+                "pose_ok": int(result["pose_ok"].sum()),
+                "relocalizations": int(result["reloc_ok"].sum()),
+            }))
+        return 0
+
+    if args.slam:
+        from tpuslam_torch.model.system import SlamSystem
+
+        runner = SlamSystem(camera, config, vocabulary=vocab, tracking=args.tracking, device=args.device)
+        device = runner.device
+        log.info("Full SLAM, %s tracking (vocabulary: %s)", args.tracking, vocab)
+    else:
+        runner = SlamPipeline(
+            camera, config, tracking=args.tracking, device=args.device, nms_fused=args.nms_fused
+        )
+        device = runner.device
     log.info("Stream %s: %d frames on %s", args.stream, stream.total_frames, args.device)
 
-    batches = stream.batches(args.batch_size)
-    if args.max_frames:
-        batches = _limited(batches, args.max_frames)
+    resume_state = resume_poses = slam_resume = None
+    start_frame = 0
+    if args.resume:
+        if args.slam:
+            slam_resume = load_state(args.resume, device=device, slam=runner.checkpoint_template())["slam"]
+            start_frame = int(slam_resume["counters"][0])
+        else:
+            template = runner.initial_pnp_state() if args.tracking == "pnp" else runner.initial_state()
+            loaded = load_state(args.resume, device=device, state=template, trajectory=np.zeros((0, 4, 4)))
+            resume_state = loaded["state"]
+            resume_poses = loaded["trajectory"].cpu().numpy()
+            start_frame = len(resume_poses)
+        log.info("Resuming at frame %d from %s", start_frame, args.resume)
+
     t0 = time.perf_counter()
-    result = (pipeline.run_pnp if args.tracking == "pnp" else pipeline.run)(batches)
+    if args.slam:  # a SLAM checkpoint carries the trajectory so far: the poses cover the whole run
+        result = runner.run(batches(start_frame), resume=slam_resume)
+    else:
+        run = runner.run_pnp if args.tracking == "pnp" else runner.run
+        result = run(batches(start_frame), initial_state=resume_state)
+        if resume_poses is not None:
+            result["poses"] = np.concatenate([resume_poses.astype(result["poses"].dtype), result["poses"]])
     dt = time.perf_counter() - t0
     save_kitti_trajectory(result["poses"], args.output)
     log.info("Trajectory written to %s", args.output)
+    for lp in result.get("loops", []):
+        log.info("Loop closure: frame %d -> keyframe %d (%d inliers)",
+                 lp["frame_id"], lp["matched_keyframe_id"], lp["num_inliers"])
+    if args.save_state:
+        if args.slam:
+            save_state(args.save_state, slam=result["checkpoint"])
+        else:
+            save_state(args.save_state, trajectory=result["poses"], state=result["state"])
+        log.info("State checkpoint written to %s", args.save_state)
     if args.stats:
         n = len(result["poses"])
-        print(json.dumps({
+        stats = {
             "frames": n,
             "seconds": dt,
             "fps": n / dt if dt > 0 else 0.0,
-            "device": str(pipeline.device),
+            "device": str(device),
             "tracking": args.tracking,
             "pose_ok": int(np.asarray(result["pose_ok"]).sum()),
             "mean_matches": float(np.mean(result["num_matches"])) if n else 0.0,
             "mean_inliers": float(np.mean(result["num_inliers"])) if n else 0.0,
-        }))
+        }
+        if "reloc_ok" in result:
+            stats["relocalizations"] = int(result["reloc_ok"].sum())
+        if args.slam:
+            stats["loops"] = len(result["loops"])
+            stats["ba_events"] = len(result["ba_events"])
+        print(json.dumps(stats))
     return 0
 
 

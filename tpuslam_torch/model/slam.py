@@ -37,6 +37,7 @@ from tpuslam_torch.frontend.pose import (
     estimate_relative_pose,
     triangulate_matched_points,
 )
+from tpuslam_torch.pre.stream import device_prefetch
 
 DrawFn = Callable[[int, torch.Tensor, int, int], torch.Tensor]
 PnpDrawFn = Callable[[int, torch.Tensor], torch.Tensor]
@@ -446,18 +447,15 @@ class SlamPipeline:
         return _stack_results(results), state
 
     def _drive(self, chunk_fn, frame_batches, seed: int, state) -> dict:
-        out: dict[str, list[np.ndarray]] = {
-            "poses": [], "num_matches": [], "num_inliers": [], "pose_ok": []
-        }
-        for frames, _stamps, valid in frame_batches:
-            result, state = chunk_fn(
-                torch.from_numpy(np.ascontiguousarray(frames)), torch.from_numpy(valid), state, seed
-            )
-            n = int(valid.sum())
+        """Chunks staged ahead on the device (``device_prefetch``); the outputs read back once at the end."""
+        out: dict[str, list[torch.Tensor]] = {"poses": [], "num_matches": [], "num_inliers": [], "pose_ok": []}
+        for frames, _stamps, valid in device_prefetch(frame_batches, self.device):
+            result, state = chunk_fn(frames, torch.from_numpy(np.asarray(valid, dtype=bool)), state, seed)
+            n = int(np.sum(valid))
             for k in out:
-                out[k].append(getattr(result, k)[:n].cpu().numpy())
+                out[k].append(getattr(result, k)[:n])
         merged = {
-            k: np.concatenate(v) if v else np.zeros((0, 4, 4) if k == "poses" else (0,))
+            k: torch.cat(v).cpu().numpy() if v else np.zeros((0, 4, 4) if k == "poses" else (0,))
             for k, v in out.items()
         }
         return {**merged, "state": state}

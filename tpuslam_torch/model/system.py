@@ -25,18 +25,32 @@ modes:
   loop edges are optimised (``backend/pose_graph.py``, on the system's
   device) and every frame inherits its keyframe's correction.
 
-``run_sequence`` is a host loop over chunks, as ``process_sequence`` is.
+Two drivers, as in the reference:
+
+* ``run_sequence`` — a pre-staged (N, H, W) frame array, a host loop over
+  chunks as ``process_sequence`` is, BA scheduled on the device count of
+  enabled keyframes;
+* ``run`` — the streaming driver over ``FrameStream.batches()``-shaped
+  chunks, staged ahead on the device by ``device_prefetch``: BA scheduled on
+  the host count of expected keyframes, each chunk keeping only its poses,
+  stats, loops and BA snapshot, everything folded once after the last
+  chunk; ``resume`` continues from a ``result["checkpoint"]`` payload
+  (``checkpoint_template`` is its structure for ``utils/checkpoint.py``),
+  and a split run reproduces the uninterrupted one.
+
+Both take ``warm_start={"map", "db"}`` to start a new run against prebuilt
+state; ``localization_only`` (PnP tracking) tracks against that state
+frozen: no inserts, no BA, relocalization from frame 0.
+
 The reference's ``lax.cond`` branches become host reads once a chunk: whether a
 frame needs relocalization, and (in ``LoopClosure``) the ring's overflow
 flag with the candidate mask.  Random draws depend only on (seed, global
 frame index), in four streams: the two-view ranks, the tracker's
-RANSAC-PnP samples, loop verification's and relocalization's.
-``draw_fn``, ``pnp_draw_fn``, ``lc_draw_fn(frame_idx, valid) -> (H, 6)``
+RANSAC-PnP samples, loop verification's and relocalization's; so restoring
+the frame counter is all a resumed run needs to draw as the uninterrupted
+one.  ``draw_fn``, ``pnp_draw_fn``, ``lc_draw_fn(frame_idx, valid) -> (H, 6)``
 and ``reloc_draw_fn(frame_idx, pnp_valid, n_valid) -> ((H, 6), (1024, 5))``
 may supply them (a test passes the reference package's).
-
-Not in this port yet (``ROADMAP.md`` Queue 1): the streaming ``run()``,
-``warm_start``, ``checkpoint_template`` and ``localization_only``.
 """
 
 from __future__ import annotations
@@ -46,7 +60,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from typing import Callable
+from typing import Callable, Iterator
 
 from tpuslam_torch.backend.ba import bundle_adjust
 from tpuslam_torch.backend.loop_closure import RELOC_HYPOTHESES, LoopClosure, LoopResult, _rigid_inverse
@@ -65,9 +79,9 @@ from tpuslam_torch.backend.vocabulary import Vocabulary
 from tpuslam_torch.common.camera import Camera
 from tpuslam_torch.config.schema import SlamConfig
 from tpuslam_torch.model.slam import DrawFn, PnpDrawFn, SlamPipeline, _stream_seed
+from tpuslam_torch.pre.stream import device_prefetch
+from tpuslam_torch.utils.convert import _numpy
 
-STREAMING_ITEM = "ROADMAP.md Queue 1 item 3.2 (the streaming SlamSystem.run())"
-LOCALIZATION_ITEM = "ROADMAP.md Queue 1 item 4 (resume and localization)"
 _LC_STREAM = 0xC2B2AE3D27D4EB4F  # xor-ed into the seed of loop verification's draws
 _RELOC_STREAM = 0x165667B19E3779F9  # and of relocalization's
 LcDrawFn = Callable[[int, torch.Tensor], torch.Tensor]
@@ -103,7 +117,8 @@ class SlamSystem:
     # lost frames query the keyframe database; at most reloc_budget of them verify a chunk
     enable_relocalization: bool = True
     reloc_budget: int = 2
-    localization_only: bool = False  # not ported yet (raises)
+    # track against a loaded map and DB, frozen (tracking="pnp"; the state comes in as warm_start)
+    localization_only: bool = False
     device: torch.device | str = "cuda"
     draw_fn: DrawFn | None = None
     pnp_draw_fn: PnpDrawFn | None = None
@@ -114,7 +129,9 @@ class SlamSystem:
         if self.tracking not in ("vo", "pnp"):
             raise ValueError(f"unknown tracking mode {self.tracking!r}")
         if self.localization_only:
-            raise NotImplementedError(f"localization_only is not ported yet: {LOCALIZATION_ITEM}")
+            if self.tracking != "pnp":
+                raise ValueError("localization_only requires tracking='pnp' (the map-centric tracker)")
+            self.enable_ba = False  # nothing to optimise on a frozen map
         self.device = torch.device(self.device)
         self.pipeline = SlamPipeline(
             self.camera,
@@ -126,6 +143,7 @@ class SlamSystem:
             map_window=self.ba_window,
             max_map_points=self.max_map_points,
             pnp_draw_fn=self.pnp_draw_fn,
+            freeze_map=self.localization_only,
         )
         self._K = self.pipeline.K
         self.loop_closure = None
@@ -281,10 +299,14 @@ class SlamSystem:
         landmarks frame f inserted are those born at or after its
         ``pnp_point_count0``; keyframe rows map back to frames by ``kf_id``.
         A world-frame update X' = M X takes a keyframe's (R, t) to
-        (R·M_Rᵀ, t − R·M_Rᵀ·M_t).
+        (R·M_Rᵀ, t − R·M_Rᵀ·M_t).  With ``localization_only`` frame 0 may
+        relocalize too (it bootstraps against the loaded DB), and the loaded
+        map stays as it is: corrections touch the poses only.
         """
         B = result.poses.shape[0]
-        need = valid & ~result.pose_ok & (fids_d > 0)
+        need = valid & ~result.pose_ok
+        if not self.localization_only:
+            need = need & (fids_d > 0)
         need_host = need.cpu().tolist()
         eye = torch.eye(4, device=self.device)
         if not any(need_host):
@@ -295,6 +317,9 @@ class SlamSystem:
         last_anchor = torch.cummax(torch.where(result.pnp_absolute_ok, tri, -1), 0).values
         live = (last_snap >= 0) & (last_snap > last_anchor)
         M = torch.where(live[:, None, None], Msnap[torch.clamp_min(last_snap, 0)], eye)
+        out = result._replace(poses=M @ result.poses, pose_ok=result.pose_ok | r_ok)
+        if self.localization_only:
+            return out, m, M[-1], r_ok
 
         # landmarks born at corrected frames
         count0 = result.pnp_point_count0
@@ -314,40 +339,46 @@ class SlamSystem:
             kf_R=torch.where(in_chunk[:, None, None], R2, m.kf_R),
             kf_t=torch.where(in_chunk[:, None], t2, m.kf_t),
         )
-        return result._replace(poses=M @ result.poses, pose_ok=result.pose_ok | r_ok), m2, M[-1], r_ok
+        return out, m2, M[-1], r_ok
 
-    def _step(self, carry: tuple, frames: torch.Tensor, valid: torch.Tensor, seed: int):
-        """One chunk: tracking, relocalization, the map (VO: the fold), loop closure, BA when due."""
+    def _track(self, state, m, a, db, frames: torch.Tensor, valid: torch.Tensor, seed: int):
+        """One chunk up to BA: tracking, relocalization, the map (VO: the fold), loop closure.
+
+        ``state`` is the tracking carry: a ``VoState`` with the window ``m``
+        and association ``a`` beside it, or a ``PnpState`` holding its own
+        (``m`` and ``a`` then unused).  Returns (the chunk's outputs, state',
+        map', assoc', db').
+        """
         B = frames.shape[0]
         pnp_mode = self.tracking == "pnp"
         lc = self.loop_closure
+        relocalize = lc is not None and self.enable_relocalization
         valid_d = valid.to(self.device)
+        frame_idx = (state.vo if pnp_mode else state).frame_idx
+        fids = [frame_idx + i for i in range(B)]
+        fids_d = frame_idx + torch.arange(B, dtype=torch.int32, device=self.device)
         reloc_ok = torch.zeros(B, dtype=torch.bool, device=self.device)
         if pnp_mode:
-            st, db, since_ba = carry
-            fids = [st.vo.frame_idx + i for i in range(B)]
-            fids_d = st.vo.frame_idx + torch.arange(B, dtype=torch.int32, device=self.device)
-            result, st2 = self.pipeline.process_chunk_pnp(frames, valid, st, seed)
+            result, state = self.pipeline.process_chunk_pnp(frames, valid, state, seed)
             bow = None if lc is None else lc.vocabulary.transform(result.desc, result.kps_valid)
-            if lc is not None and self.enable_relocalization:
+            if relocalize:
                 result, m_fix, M_last, reloc_ok = self._reloc_chunk_pnp(
-                    db, result, st2.map, valid_d, fids_d, fids, seed, bow)
-                st2 = st2._replace(map=m_fix, vo=st2.vo._replace(pose=M_last @ st2.vo.pose))
-            # every valid tracked frame is a keyframe (after relocalization: rescued frames insert)
-            kf_enabled = valid_d & (result.pose_ok | (fids_d == 0))
-            m2 = st2.map
+                    db, result, state.map, valid_d, fids_d, fids, seed, bow)
+                state = state._replace(map=m_fix, vo=state.vo._replace(pose=M_last @ state.vo.pose))
+            m = state.map
+            if self.localization_only:  # the loaded map and DB are frozen: nothing inserts
+                kf_enabled = torch.zeros(B, dtype=torch.bool, device=self.device)
+            else:  # every valid tracked frame is a keyframe (after relocalization: rescued frames insert)
+                kf_enabled = valid_d & (result.pose_ok | (fids_d == 0))
         else:
-            vo, m, a, db, since_ba = carry
-            fids = [vo.frame_idx + i for i in range(B)]
-            fids_d = vo.frame_idx + torch.arange(B, dtype=torch.int32, device=self.device)
-            result, vo2 = self.pipeline.process_chunk(frames, valid, vo, seed)
+            result, state = self.pipeline.process_chunk(frames, valid, state, seed)
             bow = None if lc is None else lc.vocabulary.transform(result.desc, result.kps_valid)
-            if lc is not None and self.enable_relocalization:
+            if relocalize:
                 result, M_last, reloc_ok = self._reloc_chunk(db, result, valid_d, fids_d, fids, seed, bow)
-                vo2 = vo2._replace(pose=M_last @ vo2.pose)
+                state = state._replace(pose=M_last @ state.pose)
             kf_mask = ((fids_d % self.keyframe_interval) == 0) & valid_d
             fold = update_map_chunk_batched if self.use_batched_map else update_map_chunk
-            m2, a2 = fold(
+            m, a = fold(
                 m, a, self._K, fids_d, kf_mask, result.poses, result.pose_ok,
                 result.kps_xy, result.m_query, result.m_train,
                 result.m_valid, result.points3d, result.point_ok,
@@ -365,23 +396,36 @@ class SlamSystem:
         }
         if lc is not None:
             db, out["loop"] = self._lc_chunk(db, fids_d, fids, kf_enabled, result, seed,
-                                             m=m2 if pnp_mode else None, bow=bow)
-        since_ba = since_ba + kf_enabled.sum(dtype=torch.int32)
+                                             m=m if pnp_mode else None, bow=bow)
+        return out, state, m, a, db
+
+    def _track_from(self, st, m: MapState, ran) -> tuple:
+        """PnP: the optimised window is the map the next chunk tracks against, and the chain
+        continues from its newest keyframe."""
+        return st._replace(map=m, vo=st.vo._replace(pose=self._refreshed_pose(m, ran, st.vo.pose)))
+
+    def _step(self, carry: tuple, frames: torch.Tensor, valid: torch.Tensor, seed: int):
+        """One chunk of ``run_sequence``: ``_track``, then BA once the enabled keyframes reach the interval."""
+        pnp_mode = self.tracking == "pnp"
+        if pnp_mode:
+            st, db, since_ba = carry
+            m = a = None
+        else:
+            st, m, a, db, since_ba = carry
+        out, st, m, a, db = self._track(st, m, a, db, frames, valid, seed)
+        since_ba = since_ba + out["kf_enabled"].sum(dtype=torch.int32)
         if self.enable_ba:
-            m2, c0, c1, ran = self._ba_cond(m2, since_ba)
+            m, c0, c1, ran = self._ba_cond(m, since_ba)
             since_ba = torch.where(ran, 0, since_ba)
             out.update(
-                ba_ran=ran, ba_costs=torch.stack([c0, c1]), ba_kf_id=m2.kf_id,
-                ba_kf_valid=m2.kf_valid & ran, ba_kf_R=m2.kf_R, ba_kf_t=m2.kf_t,
+                ba_ran=ran, ba_costs=torch.stack([c0, c1]), ba_kf_id=m.kf_id,
+                ba_kf_valid=m.kf_valid & ran, ba_kf_R=m.kf_R, ba_kf_t=m.kf_t,
             )
+            if pnp_mode:
+                st = self._track_from(st, m, ran)
         if pnp_mode:
-            # the optimised window is the map the next chunk tracks against, and
-            # the chain continues from its newest keyframe
-            if self.enable_ba:
-                pose2 = self._refreshed_pose(m2, ran, st2.vo.pose)
-                st2 = st2._replace(map=m2, vo=st2.vo._replace(pose=pose2))
-            return (st2, db, since_ba), out
-        return (vo2, m2, a2, db, since_ba), out
+            return (st, db, since_ba), out
+        return (st, m, a, db, since_ba), out
 
     def new_db(self):
         """An empty keyframe database (None without loop closure)."""
@@ -390,31 +434,62 @@ class SlamSystem:
         det = self.config.detector
         return self.loop_closure.new_db(det.max_keypoints, det.descriptor_bytes)
 
-    def initial_carry(self) -> tuple:
+    def _warm_start_map(self, m: MapState) -> MapState:
+        """A loaded map made ready for a new run that starts at frame 0.
+
+        Its keyframe rows carry the frame ids of the run that built them,
+        which the new run issues again; ``_reloc_chunk_pnp`` (``kf_id −
+        fids[0]``) and ``_apply_ba_snapshot`` (``kf_id`` indexes the
+        trajectory) would take them for this run's frames.  So valid rows
+        are re-stamped, in order, to ids ≤ −2, below the empty sentinel −1.
+        In localization mode the map stays as loaded (it is never corrected).
+        """
+        if self.localization_only:
+            return m
+        max_id = torch.where(m.kf_valid, m.kf_id, -1).max()
+        return m._replace(kf_id=torch.where(m.kf_valid, m.kf_id - (max_id + 2), m.kf_id))
+
+    def _start(self, warm_start: dict | None) -> tuple:
+        """(tracking state, map, association, DB) of a new run, with ``warm_start``'s map and DB where given."""
+        if self.localization_only and (warm_start is None or "map" not in warm_start):
+            raise ValueError("localization_only needs warm_start={'map': ..., 'db': ...} "
+                             "(a previous run's checkpoint carries both)")
+        pnp_mode = self.tracking == "pnp"
+        state = self.pipeline.initial_pnp_state() if pnp_mode else self.pipeline.initial_state()
+        m = empty_map(self.ba_window, self.max_map_points, self.device)
+        a = empty_assoc(self.config.detector.max_keypoints, self.device)
+        db = self.new_db()
+        if warm_start is not None:
+            if "db" in warm_start and db is not None:
+                db = warm_start["db"]
+            if "map" in warm_start:
+                m = self._warm_start_map(warm_start["map"])
+                if pnp_mode:
+                    state = state._replace(map=m)
+        return state, m, a, db
+
+    def initial_carry(self, warm_start: dict | None = None) -> tuple:
+        """``run_sequence``'s carry: (state, db, since_ba) in PnP mode, (state, map, assoc, db, since_ba) in VO."""
+        state, m, a, db = self._start(warm_start)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         if self.tracking == "pnp":
-            return (self.pipeline.initial_pnp_state(), self.new_db(), zero)
-        return (
-            self.pipeline.initial_state(),
-            empty_map(self.ba_window, self.max_map_points, self.device),
-            empty_assoc(self.config.detector.max_keypoints, self.device),
-            self.new_db(),
-            zero,
-        )
+            return (state, db, zero)
+        return (state, m, a, db, zero)
 
     def run_sequence(self, frames: np.ndarray, seed: int = 0, warm_start: dict | None = None) -> dict:
         """SLAM over a pre-staged (N, H, W) uint8 frame array, on ``device``.
 
         The frames go to the device once; chunks run in order; the outputs
         come back once; the BA windows and then the pose graph fold into the
-        trajectory on the host.  Returns the reference's keys: ``poses``
+        trajectory on the host.  ``warm_start``: ``{"map": MapState, "db":
+        KeyframeDB}`` to start from prebuilt state (``localization_only``
+        needs it).  Returns the reference's keys: ``poses``
         (N, 4, 4), ``loops`` (``frame_id``, ``matched_keyframe_id``,
         ``num_inliers``, ``relative_transform``), ``ba_events``, ``map``,
         ``db`` (None without loop closure), ``pose_graph_applied``,
         ``num_matches``, ``num_inliers``, ``pose_ok`` and ``reloc_ok``.
         """
-        if warm_start is not None:
-            raise NotImplementedError(f"warm_start is not ported yet: {LOCALIZATION_ITEM}")
+        carry = self.initial_carry(warm_start)
         B = self.config.batch_size
         frames = np.asarray(frames)
         n = len(frames)
@@ -426,7 +501,6 @@ class SlamSystem:
         chunks = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
         chunks = chunks.reshape(n_chunks, B, *frames.shape[1:])
 
-        carry = self.initial_carry()
         outs: dict[str, list] = {}
         for c in range(n_chunks):
             carry, out = self._step(carry, chunks[c], valid[c], seed)
@@ -477,8 +551,201 @@ class SlamSystem:
             "reloc_ok": host["reloc_ok"].reshape(-1)[:n],
         }
 
-    def run(self, *args, **kwargs):
-        raise NotImplementedError(f"the streaming SlamSystem.run() is not ported yet: {STREAMING_ITEM}")
+    def checkpoint_template(self) -> dict:
+        """The structure of ``run()``'s ``result["checkpoint"]``, for ``utils.checkpoint.load_state``.
+
+        Shapes are placeholders: the file's own shapes are what loads.  The
+        DB is a 0-d float32 zero without loop closure, as in the reference.
+        """
+        pnp_mode = self.tracking == "pnp"
+        state = self.pipeline.initial_pnp_state() if pnp_mode else self.pipeline.initial_state()
+        db = self.new_db()
+        W = self.ba_window
+        z = np.zeros
+        return {
+            "carry_state": state,
+            "world_map": empty_map(W, self.max_map_points, self.device),
+            "assoc": empty_assoc(self.config.detector.max_keypoints, self.device),
+            "db": z((), np.float32) if db is None else db,
+            "counters": z(3, np.int64),
+            "raw_poses": z((0, 4, 4), np.float32),
+            "stats_matches": z(0, np.int32),
+            "stats_inliers": z(0, np.int32),
+            "stats_pose_ok": z(0, bool),
+            "stats_reloc_ok": z(0, bool),
+            "kf_fids": z(0, np.int32),
+            "loops_frame": z(0, np.int32),
+            "loops_matched": z(0, np.int32),
+            "loops_ninl": z(0, np.int32),
+            "loops_T": z((0, 4, 4), np.float32),
+            "ba_frame": z(0, np.int32),
+            "ba_costs": z((0, 2), np.float32),
+            "ba_kf_id": z((0, W), np.int32),
+            "ba_kf_valid": z((0, W), bool),
+            "ba_kf_R": z((0, W, 3, 3), np.float32),
+            "ba_kf_t": z((0, W, 3), np.float32),
+        }
+
+    def run(self, frame_batches: Iterator[tuple], seed: int = 0, resume: dict | None = None,
+            warm_start: dict | None = None) -> dict:
+        """Stream ``(frames (B, H, W) uint8, stamps, valid (B,) bool)`` chunks through SLAM.
+
+        The chunks are staged on ``device`` ahead of use (``device_prefetch``).
+        Each runs ``_track``; BA is scheduled on the host count of *expected*
+        keyframes and runs when due, with no read of the device; a chunk
+        keeps only its poses, stats, loop results and BA snapshot.  After
+        the last chunk everything is read back once and folded: the BA
+        snapshots in event order, then the pose graph.
+
+        ``resume``: a ``result["checkpoint"]`` payload of an earlier run
+        (``load_state`` against ``checkpoint_template()``).  The stream
+        continues at its frame counter (``counters[0]``) with the same batch
+        size; its raw trajectory, stats, keyframes, loops and BA snapshots
+        are prepended before the fold, so a split run reproduces the
+        uninterrupted one.  ``warm_start``: ``{"map", "db"}`` to start a new
+        stream (frame ids from 0) against prebuilt state; required with
+        ``localization_only``; exclusive with ``resume``.
+
+        Returns ``poses``, ``loops``, ``ba_events``, ``map``,
+        ``pose_graph_applied``, ``checkpoint``, ``num_matches``,
+        ``num_inliers``, ``pose_ok`` and ``reloc_ok``.
+        """
+        if resume is not None and warm_start is not None:
+            raise ValueError("resume and warm_start are mutually exclusive (a resume payload carries its own "
+                             "map and DB)")
+        pnp_mode = self.tracking == "pnp"
+        if resume is not None:
+            state, world_map, assoc = resume["carry_state"], resume["world_map"], resume["assoc"]
+            db = resume["db"] if self.loop_closure is not None else None
+            frame_id, chunk_idx, kf_since_ba = (int(x) for x in _numpy(resume["counters"]))
+        else:
+            state, world_map, assoc, db = self._start(warm_start)
+            frame_id = chunk_idx = kf_since_ba = 0
+
+        records: list[dict] = []
+        for frames, _stamps, valid in device_prefetch(frame_batches, self.device):
+            valid = np.asarray(valid, dtype=bool)
+            B, n = len(valid), int(valid.sum())
+            fids = np.arange(frame_id, frame_id + B, dtype=np.int32)
+            out, state, world_map, assoc, db = self._track(
+                state, world_map, assoc, db, frames, torch.from_numpy(valid), seed)
+            if pnp_mode:
+                kf_mask = np.zeros(B, bool) if self.localization_only else np.arange(B) < n
+            else:
+                kf_mask = (fids % self.keyframe_interval == 0) & (np.arange(B) < n)
+            # only what the fold reads: a whole ChunkResult would pin its features for the whole stream
+            rec = {k: out[k] for k in ("poses", "num_matches", "num_inliers", "pose_ok", "reloc_ok")}
+            rec.update(n=n, fids=fids, kf_mask=kf_mask)
+            if "loop" in out:
+                lres = out["loop"]
+                rec["loop"] = (lres.success, lres.matched_keyframe_id, lres.num_inliers, lres.relative_transform)
+            kf_since_ba += int(kf_mask.sum())
+            if self.enable_ba and kf_since_ba >= self.ba_interval:
+                ba = self._bundle_adjust(world_map)
+                world_map = ba.map
+                if pnp_mode:
+                    state = self._track_from(state, world_map, True)
+                rec["ba"] = {"initial_cost": ba.initial_cost, "final_cost": ba.final_cost,
+                             **{k: getattr(world_map, k) for k in ("kf_id", "kf_valid", "kf_R", "kf_t")}}
+                kf_since_ba = 0
+            records.append(rec)
+            frame_id += n
+            chunk_idx += 1
+
+        # ---- the one read-back, then the fold -------------------------------------------------
+        poses_np: list[np.ndarray] = []
+        stats: dict[str, list] = {"num_matches": [], "num_inliers": [], "pose_ok": [], "reloc_ok": []}
+        kf_fids: list[int] = []
+        loops: list[dict] = []
+        ba_events: list[dict] = []
+        ba_snaps: list[dict] = []
+        for rec in records:
+            n, fids = rec["n"], rec["fids"]
+            poses_np.append(_numpy(rec["poses"])[:n])
+            pose_ok = _numpy(rec["pose_ok"])
+            for k in stats:
+                stats[k].append(_numpy(rec[k])[:n])
+            kf_enabled = rec["kf_mask"] & (pose_ok | (fids == 0))
+            kf_fids.extend(int(f) for f in fids[kf_enabled])
+            if "loop" in rec:
+                success, matched, n_inl, T_rel = (_numpy(x) for x in rec["loop"])
+                loops.extend(
+                    {"frame_id": int(fids[b]), "matched_keyframe_id": int(matched[b]),
+                     "num_inliers": int(n_inl[b]), "relative_transform": T_rel[b]}
+                    for b in np.nonzero(success)[0]
+                )
+            if "ba" in rec:
+                snap = {k: _numpy(v) for k, v in rec["ba"].items()}
+                ba_events.append({"frame_id": kf_fids[-1] if kf_fids else 0,
+                                  "initial_cost": float(snap["initial_cost"]),
+                                  "final_cost": float(snap["final_cost"])})
+                ba_snaps.append(snap)
+
+        if resume is not None:  # the resumed segment's raw accumulations go first
+            r = {k: _numpy(v) for k, v in resume.items() if k not in ("carry_state", "world_map", "assoc", "db")}
+            poses_np.insert(0, r["raw_poses"].astype(np.float32))
+            for k, saved in (("num_matches", "stats_matches"), ("num_inliers", "stats_inliers"),
+                             ("pose_ok", "stats_pose_ok"), ("reloc_ok", "stats_reloc_ok")):
+                stats[k].insert(0, r[saved])
+            kf_fids = [int(f) for f in r["kf_fids"]] + kf_fids
+            loops = [
+                {"frame_id": int(f), "matched_keyframe_id": int(m), "num_inliers": int(k), "relative_transform": T}
+                for f, m, k, T in zip(r["loops_frame"], r["loops_matched"], r["loops_ninl"], r["loops_T"])
+            ] + loops
+            ba_snaps = [{k: r[f"ba_{k}"][e] for k in ("kf_id", "kf_valid", "kf_R", "kf_t")}
+                        for e in range(len(r["ba_frame"]))] + ba_snaps
+            ba_events = [{"frame_id": int(f), "initial_cost": float(c[0]), "final_cost": float(c[1])}
+                         for f, c in zip(r["ba_frame"], r["ba_costs"])] + ba_events
+
+        raw_poses = np.concatenate(poses_np) if poses_np else np.zeros((0, 4, 4), np.float32)
+        all_poses = raw_poses
+        for snap in ba_snaps:  # in event order, so each window's correction reaches the frames after it
+            all_poses = self._apply_ba_snapshot(snap, all_poses)
+        pose_graph_applied = False
+        if self.enable_pose_graph and loops and len(kf_fids) >= 2:
+            all_poses = self._apply_pose_graph(all_poses, kf_fids, loops)
+            pose_graph_applied = True
+
+        W = self.ba_window
+
+        def snaps(key: str, shape: tuple, dtype) -> np.ndarray:
+            return np.stack([s[key] for s in ba_snaps]) if ba_snaps else np.zeros((0, *shape), dtype)
+
+        stats_np = {k: np.concatenate(v) if v else np.zeros((0,)) for k, v in stats.items()}
+        checkpoint = {
+            "carry_state": state,
+            "world_map": world_map,
+            "assoc": assoc,
+            "db": np.zeros((), np.float32) if db is None else db,
+            "counters": np.asarray([frame_id, chunk_idx, kf_since_ba], np.int64),
+            "raw_poses": raw_poses.astype(np.float32),
+            "stats_matches": np.asarray(stats_np["num_matches"], np.int32),
+            "stats_inliers": np.asarray(stats_np["num_inliers"], np.int32),
+            "stats_pose_ok": np.asarray(stats_np["pose_ok"], bool),
+            "stats_reloc_ok": np.asarray(stats_np["reloc_ok"], bool),
+            "kf_fids": np.asarray(kf_fids, np.int32),
+            "loops_frame": np.asarray([lp["frame_id"] for lp in loops], np.int32),
+            "loops_matched": np.asarray([lp["matched_keyframe_id"] for lp in loops], np.int32),
+            "loops_ninl": np.asarray([lp["num_inliers"] for lp in loops], np.int32),
+            "loops_T": (np.stack([np.asarray(lp["relative_transform"], np.float32) for lp in loops])
+                        if loops else np.zeros((0, 4, 4), np.float32)),
+            "ba_frame": np.asarray([ev["frame_id"] for ev in ba_events], np.int32),
+            "ba_costs": np.asarray([[ev["initial_cost"], ev["final_cost"]] for ev in ba_events],
+                                   np.float32).reshape(-1, 2),
+            "ba_kf_id": snaps("kf_id", (W,), np.int32),
+            "ba_kf_valid": snaps("kf_valid", (W,), bool),
+            "ba_kf_R": snaps("kf_R", (W, 3, 3), np.float32),
+            "ba_kf_t": snaps("kf_t", (W, 3), np.float32),
+        }
+        return {
+            "poses": all_poses,
+            "loops": loops,
+            "ba_events": ba_events,
+            "map": world_map,
+            "pose_graph_applied": pose_graph_applied,
+            "checkpoint": checkpoint,
+            **stats_np,
+        }
 
     def _loop_graph(self, all_poses: np.ndarray, kf_fids: list[int], loops: list[dict]):
         """The keyframes' chain graph on ``device`` with one edge a loop (None without a usable loop)."""

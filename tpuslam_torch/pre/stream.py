@@ -8,7 +8,8 @@ use is accepted — 8-bit grayscale, non-interlaced PNG with any of the five
 row filters — and anything else raises.  Video input is not ported yet.
 
 Undistortion is not done here: it is a gather on the device inside the
-pipeline (``tpuslam_torch.common.camera``).
+pipeline (``tpuslam_torch.common.camera``).  ``device_prefetch`` stages the
+chunks of ``FrameStream.batches()`` on the device ahead of their use.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from pathlib import Path
 from typing import Iterator
 
 import numpy as np
+import torch
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -195,3 +197,67 @@ class FrameStream:
         t.join()
         if errors:
             raise errors[0]
+
+
+def device_prefetch(
+    batches: Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]],
+    device: torch.device | str = "cuda",
+    depth: int = 2,
+) -> Iterator[tuple[torch.Tensor, np.ndarray, np.ndarray]]:
+    """Stage frame chunks on ``device`` ``depth`` chunks ahead → ``(frames tensor, stamps, valid)``.
+
+    On a CUDA device each chunk is copied into one of ``depth + 1`` pinned
+    host buffers and sent with ``copy_(non_blocking=True)`` on a side
+    stream; the consumer's stream waits on the copy's event before the
+    chunk is used.  The first chunk is handed over as soon as its copy is
+    queued; each later pull, made once the consumer has queued its work on
+    the chunk before, stages the chunks up to ``depth`` ahead, so their
+    copies run under that work.  A pinned buffer is refilled only after the
+    event of its last copy has completed, so no chunk is overwritten under
+    a running copy.  Pinning that fails raises: there is no fallback to
+    pageable or synchronous copies.  On the CPU the chunks are yielded as
+    tensors over the host arrays.
+    """
+    device = torch.device(device)
+    if device.type == "cpu":
+        for frames, stamps, valid in batches:
+            yield torch.from_numpy(np.ascontiguousarray(frames)), stamps, valid
+        return
+    copy_stream = torch.cuda.Stream(device=device)
+    pinned: list[torch.Tensor | None] = [None] * (depth + 1)
+    copied: list[torch.cuda.Event | None] = [None] * (depth + 1)
+    source = iter(batches)
+    staged: list[tuple] = []
+    n_staged = 0
+
+    def stage_until(n: int) -> None:
+        nonlocal n_staged
+        while len(staged) < n:
+            item = next(source, None)
+            if item is None:
+                return
+            frames, stamps, valid = item
+            slot = n_staged % (depth + 1)
+            n_staged += 1
+            host = torch.from_numpy(np.ascontiguousarray(frames))
+            if copied[slot] is not None:
+                copied[slot].synchronize()  # the buffer's last copy has landed
+            buf = pinned[slot]
+            if buf is None or buf.shape != host.shape or buf.dtype != host.dtype:
+                buf = pinned[slot] = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+            buf.copy_(host)
+            with torch.cuda.stream(copy_stream):
+                dev = torch.empty(host.shape, dtype=host.dtype, device=device)
+                dev.copy_(buf, non_blocking=True)
+                copied[slot] = torch.cuda.Event()
+                copied[slot].record(copy_stream)
+            staged.append((dev, copied[slot], stamps, valid))
+
+    stage_until(1)
+    while staged:
+        dev, event, stamps, valid = staged.pop(0)
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(event)
+        dev.record_stream(stream)  # the consumer's stream owns the memory from here
+        yield dev, stamps, valid
+        stage_until(depth)

@@ -27,6 +27,10 @@ Loop closure's state crosses too: ``vocabulary_from_numpy`` builds the
 port's ``Vocabulary`` from the arrays of a ``.npz`` both packages read,
 ``keyframe_db_from_numpy`` takes the reference's ``KeyframeDB``, and
 ``loop_result_to_numpy`` turns either package's ``LoopResult`` into numpy.
+``checkpoint_to_numpy`` turns either package's ``SlamSystem.run()``
+checkpoint payload into nested dicts of numpy for comparison; carrying a
+checkpoint across needs no converter, since both packages' ``load_state``
+read the same file.
 """
 
 from __future__ import annotations
@@ -209,3 +213,21 @@ def sequence_result_to_numpy(out: dict) -> dict:
         else:
             conv[k] = _numpy(v)
     return conv
+
+
+def checkpoint_to_numpy(payload) -> dict:
+    """A ``run()`` checkpoint payload (either package's) → nested dicts of numpy arrays.
+
+    Named tuples become dicts of their fields; every leaf, a scalar too, becomes an array.
+    """
+
+    def conv(x):
+        if x is None:
+            return None
+        if isinstance(x, Mapping) or hasattr(x, "_asdict"):
+            return {k: conv(v) for k, v in _fields(x).items()}
+        if isinstance(x, (tuple, list)):
+            return [conv(v) for v in x]
+        return _numpy(x)
+
+    return conv(payload)
