@@ -105,6 +105,36 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    frames/s from scratch, the marginal rate (192 - 96) / (t192 - t96) and
    ``max_memory_allocated`` over 96 and 192 frames; the memory a run's
    result keeps on the card may grow by at most 4 MiB from 96 to 192.
+12. timeshard — ``run_timesharded`` (VO, ``configs/``) over 192 frames cut
+   into 4 time shards at batch 16 (S 48, V 16: four chunks a shard), the
+   shards in turn on the card: kernels 1-4 exactly 16 launches each, kernel 5
+   none; each shard's raw trajectory and ``pose_ok`` bit-equal to its window
+   run alone through ``process_sequence`` with seed + d; core ``pose_ok`` >=
+   90% of frames 1..191; the stitched trajectory's Sim(3)-aligned ATE
+   against ``process_sequence`` over the same 192 frames < 5% of its path
+   length; frames/s of both (the single run before and after), the
+   stitch's host ms;
+13. timeshard-slam, timeshard-slam-pnp — ``run_timesharded_system`` with
+   the tree vocabulary at the reference's defaults over the same 192 frames
+   and 4 shards, in VO and in PnP mode: kernels 1-4 at least 16 launches
+   each, kernel 5 none; finite poses, core ``pose_ok`` >= 90%; BA events,
+   none raising its cost by > 0.1%; at least one cross-segment loop whose
+   query lies in a later shard's core and whose match in an earlier one's,
+   with >= MinInliersForPnP inliers; the global pose graph applied; ATE
+   against ``run_sequence`` over the same frames < 5% of its path; the
+   cross-segment pass on the card against the CPU from the same per-shard
+   DBs and draws (candidates, ``ok`` and inliers identical, R 1e-4, t
+   1e-3); frames/s against ``run_sequence``'s (before and after), the loop
+   candidates each verifies, the shards', their folds', the stitch's, the
+   cross pass's and the global pose graph's host time and the graph's N;
+14. multiseq — ``shard_sequence_program`` with one PnP SLAM sequence (tree
+   vocabulary) per card over the 96 frames (one sequence on one card):
+   kernels 1-3 six launches a sequence, kernel 4 at least that, kernel 5
+   none; each sequence bit-equal to ``run_sequence`` with its seed;
+   aggregate frames/s;
+15. cli-timeshard — ``python -m tpuslam_torch.cli -c configs -v
+   tests/data/images --timeshard 2 --slam --batch-size 4 --stats``
+   (through ``frames_to_memmap``): exit 0, 10 trajectory rows.
 Each phase from 7 on prints its seconds.
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -126,6 +156,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 BATCH = 16
 N_FRAMES = 96
+TS_FRAMES, TS_SHARDS = 192, 4  # the time-sharded phases: 4 shards of S 48 + V 16 frames
 RTOL_MSAC = 1e-5  # kernel 4 sums its 1024 matches in another order than the twin
 SLEEP_CYCLES = 2_000_000  # ~1 ms of card time, longer than the host takes to queue one call
 
@@ -1495,6 +1526,273 @@ def phase_localize(camera, config_dir: Path, frames_np: np.ndarray, card: str, u
     return rec
 
 
+def path_length(poses: np.ndarray) -> float:
+    return float(np.linalg.norm(np.diff(np.asarray(poses, np.float64)[:, :3, 3], axis=0), axis=1).sum())
+
+
+def check_ate(label: str, poses: np.ndarray, single: np.ndarray) -> tuple[float, float]:
+    """Sim(3)-aligned ATE against the single-device run, held below 5% of its path length
+    (the reference's bar, ``tests/test_timeshard.py``) → (ATE, path length)."""
+    from tpuslam_torch.post.trajectory import ate_rmse
+
+    ate, path = ate_rmse(poses, single), path_length(single)
+    if not ate < 0.05 * max(path, 1.0):
+        raise AssertionError(f"[{label}] ATE {ate:.4f} against the single-device run is not < 5% of its path "
+                             f"{path:.3f}")
+    return ate, path
+
+
+def check_core_pose_ok(label: str, pose_ok: np.ndarray) -> float:
+    share = float(pose_ok[1:].mean())  # frame 0 has no pair
+    if share < 0.9:
+        raise AssertionError(f"[{label}] pose_ok on only {share:.3f} of the core frames")
+    return share
+
+
+def phase_timeshard(camera, config_dir: Path, frames_np: np.ndarray, card: str, uses) -> dict:
+    """VO over the frames cut into TS_SHARDS time shards (``run_timesharded``), against the same frames
+    run single and each shard's window run alone."""
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.dist.timeshard import run_timesharded, stage_shard, stitch_segments
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.model.slam import SlamPipeline
+
+    label = "timeshard"
+    pipeline = SlamPipeline(camera, SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH), device="cuda")
+    n = len(frames_np)
+    chunks = torch.from_numpy(frames_np).cuda().reshape(n // BATCH, BATCH, *frames_np.shape[1:])
+    valid = torch.ones(chunks.shape[:2], dtype=torch.bool)
+    result, single_s, _, _ = drive(pipeline, chunks, valid, seed=0)
+    single = result.poses.reshape(-1, 4, 4).cpu().numpy()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run_timesharded(pipeline, frames_np, TS_SHARDS, seed=0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    S, V = out["S"], out["V"]
+    per_shard = (S + V) // BATCH
+    check_launches(label, counts, {**{k: TS_SHARDS * per_shard for k in uses}, "fused_frontend_nms_batch": 0})
+    _, single_s2, _, _ = drive(pipeline, chunks, valid, seed=0)
+    for d in range(TS_SHARDS):  # each shard is its window run alone with seed + d, bit for bit
+        shard, shard_valid = stage_shard(frames_np, d, S, V, BATCH, "cuda")
+        alone, _ = pipeline.process_sequence(shard, shard_valid, pipeline.initial_state(), seed=d)
+        if not (np.array_equal(alone.poses.reshape(-1, 4, 4).cpu().numpy(), out["segments"][d])
+                and np.array_equal(alone.pose_ok.reshape(-1).cpu().numpy(), out["segments_ok"][d])):
+            raise AssertionError(f"[{label}] shard {d} differs from its window run alone")
+    ok_share = check_core_pose_ok(label, out["pose_ok"])
+    if not np.isfinite(out["poses"]).all():
+        raise AssertionError(f"[{label}] non-finite stitched poses")
+    ate, path = check_ate(label, out["poses"], single)
+    stitch_ms = 1e3 * float(np.median([_host_s(stitch_segments, out["segments"], S, V, n, out["segments_ok"])
+                                       for _ in range(5)]))
+    rec = {"frames": n, "shards": TS_SHARDS, "S": S, "V": V, "fps": n / run_s, "single_fps": [n / single_s,
+           n / single_s2], "pose_ok_share": ok_share, "ate": ate, "path": path, "stitch_ms": stitch_ms,
+           "launches": counts}
+    log(f"[{label}] {n} frames in {TS_SHARDS} shards (S {S}, V {V}, {per_shard} chunks a shard), in turn on one "
+        f"card: {rec['fps']:.2f} frames/s against the single run's {rec['single_fps'][0]:.2f} and "
+        f"{rec['single_fps'][1]:.2f} (before, after); each shard bit-equal to its window alone; core pose_ok "
+        f"{ok_share:.3f}; ATE {ate:.4f} against the single run ({100 * ate / path:.2f}% of its {path:.3f} path); "
+        f"stitch {stitch_ms:.3f} ms on the host; on {card}")
+    return rec
+
+
+def _host_s(fn, *args) -> float:
+    t0 = time.perf_counter()
+    fn(*args)
+    return time.perf_counter() - t0
+
+
+def cross_draw(frame_idx, n_candidates, valid):
+    from tpuslam_torch.backend.pnp import gumbel_sample_indices
+
+    gen = torch.Generator(device=valid.device).manual_seed(30_000 + frame_idx)
+    return gumbel_sample_indices(valid, 512, 6, gen)
+
+
+def check_cross_card_equals_cpu(label: str, system, cpu_system, dbs, D, S, V, n) -> dict:
+    """The cross-segment pass from the same per-shard DBs and draws on the card and on the CPU."""
+    from tpuslam_torch.dist.timeshard import cross_segment_loop_closure
+
+    store = {}
+    system.cross_draw_fn, cpu_system.cross_draw_fn = recorder(store, cross_draw), replayer(store)
+    try:
+        g = cross_segment_loop_closure(system, dbs, D, S, V, n, seed=0, details=True)
+        c = cross_segment_loop_closure(cpu_system, [to_cpu(db) for db in dbs], D, S, V, n, seed=0, details=True)
+    finally:
+        system.cross_draw_fn = cpu_system.cross_draw_fn = None
+    (_, g_cand, g_ok, g_T, g_n), (_, c_cand, c_ok, c_T, c_n) = g, c
+    if g_cand != c_cand or not np.array_equal(g_ok, c_ok) or not np.array_equal(g_n, c_n):
+        raise AssertionError(f"[{label}] the cross pass on the card != CPU: candidates {g_cand} vs {c_cand}, ok "
+                             f"{g_ok} vs {c_ok}, inliers {g_n} vs {c_n}")
+    rot = float(np.abs(g_T[:, :3, :3] - c_T[:, :3, :3]).max()) if len(g_T) else 0.0
+    pos = float(np.abs(g_T[:, :3, 3] - c_T[:, :3, 3]).max()) if len(g_T) else 0.0
+    if rot > 1e-4 or pos > 1e-3:
+        raise AssertionError(f"[{label}] the cross pass on the card != CPU: R {rot}, t {pos}")
+    return {"candidates": len(g_cand), "verified": int(g_ok.sum()), "rotation_diff": rot, "position_diff": pos}
+
+
+class VerifyCounter:
+    """Counts the loop candidates ``LoopClosure._verify_impl`` verifies while it is installed on ``lc``."""
+
+    def __init__(self, lc):
+        self.lc, self.candidates = lc, 0
+
+    def __enter__(self):
+        verify = self.lc._verify_impl
+
+        def counted(descriptors, *args, **kw):
+            self.candidates += descriptors.shape[0]
+            return verify(descriptors, *args, **kw)
+
+        self.lc._verify_impl = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.lc._verify_impl
+
+
+def phase_timeshard_slam(camera, config_dir: Path, frames_np: np.ndarray, card: str, uses, tracking: str) -> dict:
+    """Full SLAM over the frames cut into TS_SHARDS time shards (``run_timesharded_system``), against
+    ``run_sequence`` over the same frames."""
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.dist.timeshard import run_timesharded_system
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.model.system import SlamSystem
+
+    label = "timeshard-slam" if tracking == "vo" else "timeshard-slam-pnp"
+    cfg = SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH)
+    vocab = config_dir / "vocabulary_tree.npz"
+    system = SlamSystem(camera, cfg, vocabulary=vocab, tracking=tracking, device="cuda")
+    n = len(frames_np)
+
+    def run_single():
+        t0 = time.perf_counter()
+        out = system.run_sequence(frames_np, seed=0)
+        return out, time.perf_counter() - t0
+
+    with VerifyCounter(system.loop_closure) as single_verified:
+        single, single_s = run_single()
+    with VerifyCounter(system.loop_closure) as sharded_verified:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_timesharded_system(system, frames_np, TS_SHARDS, seed=0)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = launch_counts()
+    _, single_s2 = run_single()
+    S, V = out["S"], out["V"]
+    least = TS_SHARDS * (S + V) // BATCH
+    log(f"[{label}] launches {counts}")
+    if any(counts[k] < least for k in uses) or counts["fused_frontend_nms_batch"]:
+        raise AssertionError(f"[{label}] launches {counts}: kernels 1-4 at least {least} each, kernel 5 none")
+    if not np.isfinite(out["poses"]).all():
+        raise AssertionError(f"[{label}] non-finite poses")
+    ok_share = check_core_pose_ok(label, out["pose_ok"])
+    ba = out["ba_events"]
+    if not ba or any(e["final_cost"] > e["initial_cost"] * 1.001 for e in ba):
+        raise AssertionError(f"[{label}] BA events {[(e['initial_cost'], e['final_cost']) for e in ba]}")
+    min_inliers = cfg.loop_closure.min_inliers_for_pnp
+    cross = [lp for lp in out["cross_loops"] if lp["frame_id"] // S > lp["matched_keyframe_id"] // S
+             and lp["num_inliers"] >= min_inliers]
+    if not cross or not out["pose_graph_applied"]:
+        pairs = [(lp["frame_id"], lp["matched_keyframe_id"], lp["num_inliers"]) for lp in out["cross_loops"]]
+        raise AssertionError(f"[{label}] cross-segment loops {pairs}, global pose graph applied "
+                             f"{out['pose_graph_applied']}")
+    ate, path = check_ate(label, out["poses"], single["poses"])
+    cpu_system = SlamSystem(camera, cfg, vocabulary=vocab, tracking=tracking, device="cpu")
+    cross_check = check_cross_card_equals_cpu(label, system, cpu_system, out["dbs"], TS_SHARDS, S, V, n)
+    sec = out["seconds"]
+    in_shard = len(out["loops"]) - len(out["cross_loops"])
+    rec = {"frames": n, "shards": TS_SHARDS, "S": S, "V": V, "fps": n / run_s,
+           "single_fps": [n / single_s, n / single_s2], "pose_ok_share": ok_share, "ate": ate, "path": path,
+           "in_shard_loops": in_shard,
+           "cross_loops": len(out["cross_loops"]), "cross_pairs": [[lp["frame_id"], lp["matched_keyframe_id"],
+                                                                    lp["num_inliers"]] for lp in out["cross_loops"]],
+           "ba_events": len(ba), "shard_seconds": sec["shards"], "shard_fold_seconds": sec["folds"],
+           "verified_candidates": sharded_verified.candidates, "single_verified_candidates":
+           single_verified.candidates, "stitch_ms": 1e3 * sec["stitch"],
+           "cross_ms": 1e3 * sec["cross"], "global_pose_graph_ms": 1e3 * sec["pose_graph"],
+           "global_pose_graph_nodes": len(out["global_keyframes"]), "single_loops": len(single["loops"]),
+           "cross_card_vs_cpu": cross_check, "launches": counts}
+    log(f"[{label}] {n} frames in {TS_SHARDS} shards (S {S}, V {V}) in turn on one card: {rec['fps']:.2f} "
+        f"frames/s against run_sequence's {rec['single_fps'][0]:.2f} and {rec['single_fps'][1]:.2f} (before, "
+        f"after) in this call; core pose_ok {ok_share:.3f}; "
+        f"{in_shard} in-shard loops, {len(out['cross_loops'])} cross-segment loops ({rec['cross_pairs'][:4]}), "
+        f"{len(ba)} BA events; ATE {ate:.4f} against run_sequence ({100 * ate / path:.2f}% of its {path:.3f} path, "
+        f"{len(single['loops'])} loops there); loop candidates verified {sharded_verified.candidates} (in-shard "
+        f"and cross), {single_verified.candidates} in run_sequence; shards {[round(x, 3) for x in sec['shards']]} s "
+        f"and their folds {[round(x, 3) for x in sec['folds']]} s, stitch "
+        f"{rec['stitch_ms']:.3f} ms, cross pass {rec['cross_ms']:.2f} ms ({cross_check['candidates']} candidates, "
+        f"{cross_check['verified']} verified; card == CPU, R {cross_check['rotation_diff']:.2e}, t "
+        f"{cross_check['position_diff']:.2e}), global pose graph {rec['global_pose_graph_ms']:.2f} ms at N = "
+        f"{rec['global_pose_graph_nodes']} on {card}")
+    return rec
+
+
+def phase_multiseq(camera, config_dir: Path, frames_np: np.ndarray, card: str, uses) -> dict:
+    """One PnP SLAM sequence per card (``shard_sequence_program``), as ``bench.py::measure_multiseq``."""
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.dist.mesh import make_device_mesh, shard_sequence_program
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.model.system import SlamSystem
+
+    label = "multiseq"
+    S = torch.cuda.device_count()
+    devices = make_device_mesh(S)
+    system = SlamSystem(camera, SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH),
+                        vocabulary=config_dir / "vocabulary_tree.npz", tracking="pnp", device="cuda")
+    n = len(frames_np)
+    chunks = np.broadcast_to(frames_np.reshape(1, n // BATCH, BATCH, *frames_np.shape[1:]),
+                             (S, n // BATCH, BATCH, *frames_np.shape[1:])).copy()
+    valid = np.ones(chunks.shape[:3], bool)
+    seeds = list(range(S))
+    step = shard_sequence_program(system, devices)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    carries, outs = step(chunks, valid, seeds)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launches(label, counts, {**{k: S * (n // BATCH) for k in uses if k != "msac_scores"},
+                                   "msac_scores": None, "fused_frontend_nms_batch": 0})
+    for s in range(S):  # each sequence bit-equal to run_sequence with its seed and frames
+        got = system._fold_sequence(outs[s], n, carries[s])
+        want = system.run_sequence(frames_np, seed=seeds[s])
+        for k in ("poses", "pose_ok", "num_matches", "num_inliers", "reloc_ok"):
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"[{label}] sequence {s}: {k} differs from run_sequence")
+        if [(lp["frame_id"], lp["matched_keyframe_id"]) for lp in got["loops"]] != \
+                [(lp["frame_id"], lp["matched_keyframe_id"]) for lp in want["loops"]]:
+            raise AssertionError(f"[{label}] sequence {s}: loops differ from run_sequence")
+    rec = {"sequences": S, "devices": [str(d) for d in devices], "frames": n, "fps": S * n / run_s,
+           "launches": counts}
+    log(f"[{label}] {S} PnP SLAM sequence(s) of {n} frames on {[str(d) for d in devices]}: aggregate "
+        f"{rec['fps']:.2f} frames/s; each bit-equal to run_sequence with its seed; on {card}")
+    return rec
+
+
+def phase_cli_timeshard(card: str) -> dict:
+    """``python -m tpuslam_torch.cli --timeshard 2 --slam`` over the 10 fixtures, through ``frames_to_memmap``."""
+    label = "cli-timeshard"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        traj = Path(tmp) / "traj.txt"
+        cmd = [sys.executable, "-m", "tpuslam_torch.cli", "-c", "configs", "-v", "tests/data/images",
+               "--timeshard", "2", "--slam", "--batch-size", "4", "--stats", "-o", str(traj)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[{label}] exit {proc.returncode}: {proc.stderr[-2000:]}")
+        rows = np.loadtxt(traj)
+        stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    if rows.shape != (10, 12) or not np.isfinite(rows).all() or stats["frames"] != 10 or stats["segments"] != 2:
+        raise AssertionError(f"[{label}] trajectory {rows.shape}, stats {stats}")
+    log(f"[{label}] {' '.join(cmd[1:-2])}: exit 0, 10 trajectory rows, stats {stats}; {secs:.1f} s with the "
+        f"process start, on {card}")
+    return {"stats": stats, "seconds": secs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1592,6 +1890,16 @@ def main() -> int:
     for key in ("checkpoint_path", "mapping_poses"):
         stream["pnp"].pop(key)
 
+    # Time sharding: 192 frames cut into 4 shards, run in turn on the card; VO, then full SLAM in both
+    # modes; then one PnP SLAM sequence per card, and the CLI's --timeshard.
+    ts_frames = load_frames(TS_FRAMES)
+    timeshard = timed_phase("timeshard", phase_timeshard, camera, config_dir, ts_frames, card, main_uses)
+    ts_slam = {tracking: timed_phase("timeshard-slam" if tracking == "vo" else "timeshard-slam-pnp",
+                                     phase_timeshard_slam, camera, config_dir, ts_frames, card, main_uses, tracking)
+               for tracking in ("vo", "pnp")}
+    multiseq = timed_phase("multiseq", phase_multiseq, camera, config_dir, frames_np, card, main_uses)
+    cli_ts = timed_phase("cli-timeshard", phase_cli_timeshard, card)
+
     for r in records:
         on_pyramid = r["name"] == "fused_frontend_nms_batch"
         r["path"] = "pyramid (configs/multiscale, nms_fused)" if on_pyramid else "main (configs/)"
@@ -1606,7 +1914,11 @@ def main() -> int:
                                  "slam_lc_pnp": slam_lc["pnp"]["launches"][r["name"]],
                                  "stream": stream["vo"]["launches"][r["name"]],
                                  "stream_pnp": stream["pnp"]["launches"][r["name"]],
-                                 "localize": localize["launches"][r["name"]]}
+                                 "localize": localize["launches"][r["name"]],
+                                 "timeshard": timeshard["launches"][r["name"]],
+                                 "timeshard_slam": ts_slam["vo"]["launches"][r["name"]],
+                                 "timeshard_slam_pnp": ts_slam["pnp"]["launches"][r["name"]],
+                                 "multiseq": multiseq["launches"][r["name"]]}
     # the main path's kernel time per chunk, from the kernels phase, against its timed chunk
     chunk_ms = main_chunk_ms
     kernel_ms = sum(r["ms"] * r["launches_per_chunk"] for r in records if r["path"].startswith("main"))
@@ -1634,7 +1946,9 @@ def main() -> int:
                     "pyramid_fps_nms_fused": pyr_fps[True], "pyramid_fps_kernel1": pyr_fps[False],
                     "pnp": pnp, "slam": slam["vo"], "slam_pnp": slam["pnp"], "slam_lc": slam_lc["vo"],
                     "slam_lc_pnp": slam_lc["pnp"], "pose_graph_pcg": pose_graph, "stream": stream["vo"],
-                    "stream_pnp": stream["pnp"], "localize": localize}))
+                    "stream_pnp": stream["pnp"], "localize": localize, "timeshard": timeshard,
+                    "timeshard_slam": ts_slam["vo"], "timeshard_slam_pnp": ts_slam["pnp"], "multiseq": multiseq,
+                    "cli_timeshard": cli_ts}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -159,7 +159,8 @@ def test_system_map_multi_observations(runs):
 def test_unported_options_raise(data_dir):
     """Loop closure constructs; the streaming run(), warm_start and localization are ported (an empty
     stream gives an empty trajectory; localization needs PnP tracking and a map); the CLI refuses what
-    is still unported (--timeshard, --plot: ROADMAP Queue 1 items 9-10)."""
+    is still unported (--plot: ROADMAP Queue 1 item 10) and, as the reference does, --timeshard with
+    --resume (``test_torch_dist.py`` holds the rest of --timeshard)."""
     cfg_dir = data_dir.parent.parent / "configs"
     cam = TCamera.from_yaml(cfg_dir / "camera.yml")
     cfg = TSlamConfig.from_yaml_dir(cfg_dir)
@@ -178,7 +179,7 @@ def test_unported_options_raise(data_dir):
     loc = TSystem(cam, cfg, vocabulary=None, tracking="pnp", localization_only=True, device="cpu")
     with pytest.raises(ValueError, match="warm_start"):
         loc.run_sequence(np.zeros((1, 8, 8), np.uint8), warm_start={"db": None})
-    for flag in (["--timeshard", "2"], ["--plot", "plot.png"]):
+    for flag in (["--timeshard", "2", "--resume", "state.npz"], ["--plot", "plot.png"]):
         with pytest.raises(SystemExit):
             cli_main(["-c", str(cfg_dir), "-v", str(data_dir / "images"), "--device", "cpu", *flag])
 

@@ -1,0 +1,202 @@
+"""Time-sharded full SLAM: tpuslam_torch's run_timesharded_system against tpuslam's on the CPU (VO mode).
+
+The reference's cross-segment fixture (``tests/test_timeshard.py``): the
+ten fixtures ping-pong tiled with period 18 over 40 frames, so the second
+forward pass (globals 18-27) revisits shard 0's keyframes from inside shard
+1's core; 2 shards at batch 5 (S = 20, V = 5), the flat vocabulary, ratio
+test 0.8, inliers at 2 px, K 512 and 256 two-view hypotheses, window 8, BA
+every 4 keyframes with 0 LM steps (BA runs, writes back and folds but moves
+nothing, as in ``test_torch_system_lc.py``).  The reference runs on a 2-device
+CPU mesh; the port replays its draws: shard d's chunk c key is
+``split(PRNGKey(d), C)[c]``, split into the two-view key (folded with the
+local frame) and ``key2`` (verification ``split(key2, B)[b]``,
+relocalization ``split(fold_in(key2, 777), B)[b]``, as in
+``test_torch_system_lc.py``), and the cross pass's candidate i draws from
+``split(fold_in(PRNGKey(0), 909), Kc)[i]``.
+
+The reference's cross pass is watched while it runs (its module function
+wrapped for the call, its verifier wrapped to report every candidate, not
+only the verified ones): that gives its final per-shard DBs and, for every
+candidate, its ``ok``, inliers and transform.  Held:
+
+* the port's ``cross_segment_loop_closure`` on those DBs (``utils/convert.py``):
+  the same candidates in the same order with the same BoW scores, ``ok``
+  and inliers identical, T within 1e-4 (R) / 1e-3 (t);
+* the whole run: in-shard loops identical in their frame ids and order,
+  cross loops the same set (the pass ranks candidates by BoW score, and
+  revisits of one fixture frame tie at 1 within a few ulps, which differ
+  between the packages' BoW vectors by up to 6e-8), inliers within ±2, BA
+  event frames identical, the cross loops' query in shard 1's core and
+  match in shard 0's; the stitched, pose-graph-corrected trajectory within
+  1e-4 (R) / 1e-3 (t), each shard's folded trajectory, in its own
+  monocular scale (coordinates up to ~9), within 1e-4 (R) / 1e-3 plus 3e-4
+  relative (t), the PnP slice's bar (Queue 3 F5; measured 1.25e-3 at a
+  coordinate of 5.48, 2.3e-4 relative).
+
+Finding (Queue 3 F5): with BA's default 4 float32 LM steps every integer
+field above stays identical, but the windows of this fixture (initial cost
+~250 to ~1170) move apart, the stitched trajectories by up to 1.55e-2 in
+rotation and 0.437 in position (measured on the CPU, the port on one
+thread), so the wiring is held with 0 steps.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import tpuslam.frontend.pose  # noqa: F401 (imported before any trace: it builds a module constant)
+from test_torch_ba import one_torch_thread  # noqa: F401 (autouse: the port on one thread)
+from test_torch_pnp import jax_gumbel_samples
+from test_torch_system import _small
+from tpuslam.common.camera import Camera as JCamera
+from tpuslam.config.schema import SlamConfig as JSlamConfig
+from tpuslam.dist import timeshard as jts
+from tpuslam.dist.mesh import make_device_mesh as jmesh
+from tpuslam.model.system import SlamSystem as JSystem
+from tpuslam_torch.common.camera import Camera as TCamera
+from tpuslam_torch.config.schema import SlamConfig as TSlamConfig
+from tpuslam_torch.dist import timeshard as tts
+from tpuslam_torch.model.system import SlamSystem as TSystem
+from tpuslam_torch.pre.stream import FrameStream
+from tpuslam_torch.utils.convert import keyframe_db_from_numpy
+
+BATCH, N_FRAMES, SHARDS, PERIOD = 5, 40, 2, 18
+SYSTEM_KW = dict(ba_window=8, ba_interval=4, max_map_points=4096, ba_iterations=0)
+
+
+def _config(cfg):
+    cfg = _small(cfg)
+    return dataclasses.replace(cfg, matcher=dataclasses.replace(cfg.matcher, ratio_test_threshold=0.8),
+                               pose=dataclasses.replace(cfg.pose, inlier_threshold_px=2.0))
+
+
+def shard_hooks(d: int, n_chunks: int):
+    """Shard d's draws in the four streams, as the reference's time-sharded sequence program takes them."""
+    chunk_keys = jax.random.split(jax.random.PRNGKey(d), n_chunks)
+
+    def keys(frame_idx):
+        return jax.random.split(chunk_keys[frame_idx // BATCH])
+
+    def draws(frame_idx, n_valid, H, S):
+        key = jax.random.fold_in(keys(frame_idx)[0], frame_idx)
+        return np.array(jax.random.randint(key, (H, S), 0, jnp.maximum(jnp.int32(int(n_valid)), 1)))
+
+    def lc_draws(frame_idx, valid):
+        return jax_gumbel_samples(jax.random.split(keys(frame_idx)[1], BATCH)[frame_idx % BATCH], valid.numpy(), 512)
+
+    def reloc_draws(frame_idx, pnp_valid, n_valid):
+        k_b = jax.random.split(jax.random.fold_in(keys(frame_idx)[1], 777), BATCH)[frame_idx % BATCH]
+        k, k_pnp = jax.random.split(k_b)
+        return (jax_gumbel_samples(k_pnp, pnp_valid.numpy(), 512),
+                np.array(jax.random.randint(k, (1024, 5), 0, max(n_valid, 1))))
+
+    return {"draw_fn": draws, "lc_draw_fn": lc_draws, "reloc_draw_fn": reloc_draws}
+
+
+def cross_draws(rank, n_candidates, valid):
+    keys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0), 909), n_candidates)
+    return jax_gumbel_samples(keys[rank], valid.numpy(), 512)
+
+
+def watch_reference_cross_pass(monkeypatch) -> dict:
+    """Wrap the reference's cross pass for the run: keep its final DBs and every candidate's verification."""
+    seen: dict = {}
+    cross = jts.cross_segment_loop_closure
+
+    def watched(system, db, D, S, V, n, seed=0, budget=None):
+        lc = system.loop_closure
+        verify = lc._verify_impl
+
+        def every_candidate(*args, **kw):  # ok rides in the inliers' low bit; every candidate reports
+            ok, T, n_inl = verify(*args, **kw)
+            return jnp.asarray(True), T, n_inl * 2 + ok.astype(n_inl.dtype)
+
+        lc._verify_impl = every_candidate
+        try:
+            every = cross(system, db, D, S, V, n, seed=seed, budget=budget)
+        finally:
+            del lc._verify_impl
+        seen.update(db=db, D=D, S=S, V=V, n=n, every=every)
+        return [{**lp, "num_inliers": lp["num_inliers"] // 2} for lp in every if lp["num_inliers"] % 2]
+
+    monkeypatch.setattr(jts, "cross_segment_loop_closure", watched)
+    return seen
+
+
+@pytest.fixture(scope="module")
+def runs(data_dir):
+    cfg_dir = data_dir.parent.parent / "configs"
+    stream = FrameStream(data_dir / "images")
+    base = [stream.read_frame(i)[0] for i in range(stream.total_frames)]
+    frames = np.stack([base[min(i % PERIOD, PERIOD - i % PERIOD)] for i in range(N_FRAMES)])
+    voc = cfg_dir / "vocabulary.npz"
+    jsys = JSystem(JCamera.from_yaml(cfg_dir / "camera.yml"),
+                   _config(JSlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH)), vocabulary=voc, **SYSTEM_KW)
+    with pytest.MonkeyPatch.context() as mp:
+        seen = watch_reference_cross_pass(mp)
+        want = jts.run_timesharded_system(jsys, frames, n_shards=SHARDS, mesh=jmesh(SHARDS), seed=0)
+    tsys = TSystem(TCamera.from_yaml(cfg_dir / "camera.yml"),
+                   _config(TSlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH)), vocabulary=voc, device="cpu",
+                   cross_draw_fn=cross_draws, **SYSTEM_KW)
+    n_chunks = (want["S"] + want["V"]) // BATCH
+    got = tts.run_timesharded_system(tsys, frames, SHARDS, seed=0, devices=["cpu"],
+                                     shard_hooks=lambda d: shard_hooks(d, n_chunks))
+    return tsys, seen, want, got
+
+
+def test_cross_pass_on_reference_dbs_matches_reference(runs):
+    tsys, seen, _, _ = runs
+    D, S, V, n = seen["D"], seen["S"], seen["V"], seen["n"]
+    fields = seen["db"]._asdict()
+    dbs = [keyframe_db_from_numpy({k: np.asarray(v)[d] for k, v in fields.items()}) for d in range(D)]
+    loops, chosen, ok, T, n_inl = tts.cross_segment_loop_closure(tsys, dbs, D, S, V, n, seed=0, details=True)
+    every = seen["every"]
+    assert len(chosen) == len(every) >= 2
+    offsets = [0] + [d * S - V for d in range(1, D)]
+    ids = [np.asarray(seen["db"].ids)[d] for d in range(D)]
+    for i, ((score, qd, qs, td, ts), w) in enumerate(zip(chosen, every)):
+        assert (offsets[qd] + ids[qd][qs], offsets[td] + ids[td][ts]) == (w["frame_id"], w["matched_keyframe_id"])
+        assert score == w["bow_score"]
+        assert (bool(ok[i]), int(n_inl[i])) == (bool(w["num_inliers"] % 2), w["num_inliers"] // 2), i
+        np.testing.assert_allclose(T[i][:3, :3], w["relative_transform"][:3, :3], atol=1e-4)
+        np.testing.assert_allclose(T[i][:3, 3], w["relative_transform"][:3, 3], atol=1e-3)
+    assert ok.any() and len(loops) == int(ok.sum())
+
+
+def test_run_timesharded_system_matches_reference(runs):
+    tsys, _, want, got = runs
+    S, V = got["S"], got["V"]
+    assert (S, V) == (want["S"], want["V"]) == (20, 5)
+    assert got["poses"].shape == (N_FRAMES, 4, 4) and np.isfinite(got["poses"]).all()
+    np.testing.assert_array_equal(got["pose_ok"], want["pose_ok"])
+    assert got["pose_ok"].sum() >= N_FRAMES - 3
+
+    def ids(loops):
+        return [(lp["frame_id"], lp["matched_keyframe_id"]) for lp in loops]
+
+    n_in = len(got["loops"]) - len(got["cross_loops"])
+    assert ids(got["loops"][:n_in]) == ids(want["loops"][:n_in])
+    # the cross pass ranks its candidates by BoW score, and revisits of the same fixture frame tie at 1
+    # within a few ulps that differ between the packages: the cross loops are held as a set
+    assert sorted(ids(got["cross_loops"])) == sorted(ids(want["cross_loops"]))
+    by_ids = {(lp["frame_id"], lp["matched_keyframe_id"]): lp["num_inliers"] for lp in want["loops"]}
+    for g in got["loops"]:
+        assert abs(g["num_inliers"] - by_ids[(g["frame_id"], g["matched_keyframe_id"])]) <= 2
+    assert [e["frame_id"] for e in got["ba_events"]] == [e["frame_id"] for e in want["ba_events"]]
+    for e in got["ba_events"]:
+        assert e["final_cost"] <= e["initial_cost"] * 1.001
+    assert got["cross_loops"] and got["pose_graph_applied"]
+    min_inliers = tsys.config.loop_closure.min_inliers_for_pnp
+    content = lambda g: min(g % PERIOD, PERIOD - g % PERIOD)  # noqa: E731
+    for lp in got["cross_loops"]:
+        assert lp["frame_id"] >= S and lp["matched_keyframe_id"] < S and lp["num_inliers"] >= min_inliers
+    assert any(content(lp["frame_id"]) == content(lp["matched_keyframe_id"]) for lp in got["cross_loops"])
+    core_kf = got["global_keyframes"]
+    assert core_kf == sorted(set(core_kf)) and all(0 <= f < N_FRAMES for f in core_kf)
+    np.testing.assert_allclose(got["segments"][..., :3, :3], want["segments"][..., :3, :3], atol=1e-4)
+    np.testing.assert_allclose(got["segments"][..., :3, 3], want["segments"][..., :3, 3], rtol=3e-4, atol=1e-3)
+    np.testing.assert_allclose(got["poses"][:, :3, :3], want["poses"][:, :3, :3], atol=1e-4)
+    np.testing.assert_allclose(got["poses"][:, :3, 3], want["poses"][:, :3, 3], atol=1e-3)

@@ -4,7 +4,8 @@ The subset of ``tools/cli.py`` the port runs::
 
     python -m tpuslam_torch.cli -c configs -v tests/data/images -o traj.txt \\
         [--tracking vo|pnp] [--batch-size 16] [--stats] [--device cpu] [--nms-fused] \\
-        [--slam [--vocabulary V]] [--save-state S.npz] [--resume S.npz] [--localize S.npz]
+        [--slam [--vocabulary V]] [--save-state S.npz] [--resume S.npz] [--localize S.npz] \\
+        [--timeshard N]
 
 writes a KITTI-format trajectory (12 values per row).  It runs on the card
 unless ``--device cpu`` is given; without a card it fails.  ``--stats`` prints
@@ -23,6 +24,14 @@ the uninterrupted run's trajectory (at the same batch size).
 ``--localize CKPT`` is a mode of its own: it tracks the stream against the
 map and keyframe DB of a ``--slam --tracking pnp`` checkpoint, frozen, an
 unknown start pose bootstrapping by relocalization.
+
+``--timeshard N`` cuts the video in time into N overlapping segments
+(``dist/timeshard.py``): the frames (``--max-frames`` of them, after
+``--frame-skip``) decode once into a memmap, each segment tracks with its
+own state, and the segments are stitched by Sim(3); with ``--slam`` each
+segment runs full SLAM and loops across segments close in a global pose
+graph.  It takes no ``--resume`` or ``--save-state``, and ``--tracking
+pnp`` only with ``--slam``.  ``--plot`` is not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import time
 from pathlib import Path
 
@@ -50,6 +60,48 @@ def _limited(batches, limit: int):
         seen += int(item[2].sum())
         if seen >= limit:
             break
+
+
+def _timeshard(args, runner, stream: FrameStream, log) -> int:
+    """``--timeshard N``: the frames decoded once into a memmap, then ``run_timesharded`` (VO) or
+    ``run_timesharded_system`` (``--slam``)."""
+    from tpuslam_torch.dist.timeshard import run_timesharded, run_timesharded_system
+    from tpuslam_torch.pre.stream import frames_to_memmap
+
+    indices = stream.frame_indices()  # honours --frame-skip
+    if args.max_frames:
+        indices = indices[: args.max_frames]
+    frames = frames_to_memmap(stream, indices)
+    try:
+        t0 = time.perf_counter()
+        run = run_timesharded_system if args.slam else run_timesharded
+        result = run(runner, frames, n_shards=args.timeshard)
+        dt = time.perf_counter() - t0
+    finally:
+        path = frames.filename
+        del frames
+        os.unlink(path)
+    n = len(indices)
+    log.info("Time-sharded %d frames over %d segments (S=%d, V=%d) in %.2f s",
+             n, args.timeshard, result["S"], result["V"], dt)
+    save_kitti_trajectory(result["poses"], args.output)
+    log.info("Trajectory written to %s", args.output)
+    for lp in result.get("loops", []):
+        log.info("Loop closure: frame %d -> keyframe %d (%d inliers)%s", lp["frame_id"],
+                 lp["matched_keyframe_id"], lp["num_inliers"], " across segments" if lp.get("cross_segment") else "")
+    if args.stats:
+        stats = {
+            "frames": n,
+            "seconds": dt,
+            "fps": n / dt if dt > 0 else 0.0,
+            "pose_ok": int(result["pose_ok"].sum()),
+            "segments": args.timeshard,
+        }
+        if args.slam:
+            stats["loops"] = len(result["loops"])
+            stats["ba_events"] = len(result["ba_events"])
+        print(json.dumps(stats))
+    return 0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -84,11 +136,24 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--localize", default=None, metavar="CKPT",
                         help="track against the frozen map and keyframe DB of a --slam --tracking pnp "
                              "checkpoint (no inserts, no BA; the start bootstraps by relocalization)")
+    parser.add_argument("--timeshard", type=int, default=0, metavar="N",
+                        help="cut the video's time axis into N overlapping segments, each tracked with its own "
+                             "state, stitched by Sim(3) over the overlaps (with --slam: cross-segment loops and "
+                             "a global pose graph); the segments run in turn on the device")
     parser.add_argument("--stats", action="store_true", help="print run stats as JSON")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="[%(asctime)s] [%(levelname)s] %(message)s")
     log = logging.getLogger("tpuslam_torch")
+
+    if args.timeshard:
+        if args.resume:
+            parser.error("--timeshard does not support --resume")
+        if args.save_state:
+            parser.error("--timeshard does not checkpoint (--save-state): per-shard state is not resumable")
+        if args.tracking != "vo" and not args.slam:
+            parser.error("--timeshard --tracking pnp requires --slam (the map-centric tracker needs its "
+                         "per-shard map)")
 
     cfg_dir = Path(args.config)
     camera = Camera.from_yaml(cfg_dir / "camera.yml", camera_index=args.camera_index)
@@ -104,8 +169,8 @@ def main(argv: list[str] | None = None) -> int:
         return _limited(it, args.max_frames) if args.max_frames else it
 
     if args.localize:
-        if args.slam or args.resume or args.save_state:
-            parser.error("--localize is its own mode (no --slam/--resume/--save-state)")
+        if args.slam or args.resume or args.save_state or args.timeshard:
+            parser.error("--localize is its own mode (no --slam/--resume/--save-state/--timeshard)")
         from tpuslam_torch.model.system import SlamSystem
 
         system = SlamSystem(camera, config, vocabulary=vocab, tracking="pnp", localization_only=True,
@@ -142,6 +207,9 @@ def main(argv: list[str] | None = None) -> int:
         )
         device = runner.device
     log.info("Stream %s: %d frames on %s", args.stream, stream.total_frames, args.device)
+
+    if args.timeshard:
+        return _timeshard(args, runner, stream, log)
 
     resume_state = resume_poses = slam_resume = None
     start_frame = 0

@@ -50,7 +50,13 @@ RANSAC-PnP samples, loop verification's and relocalization's; so restoring
 the frame counter is all a resumed run needs to draw as the uninterrupted
 one.  ``draw_fn``, ``pnp_draw_fn``, ``lc_draw_fn(frame_idx, valid) -> (H, 6)``
 and ``reloc_draw_fn(frame_idx, pnp_valid, n_valid) -> ((H, 6), (1024, 5))``
-may supply them (a test passes the reference package's).
+may supply them (a test passes the reference package's).  The time-sharded
+driver's cross-segment verification draws a fifth stream, by candidate
+rank, or from ``cross_draw_fn(rank, n_candidates, valid) -> (H, 6)``.
+
+``run_sequence`` is ``_sequence_raw`` (the chunk loop: the raw outputs and
+the final carry, as the reference's ``_sequence_impl``) then
+``_fold_sequence``; ``dist/`` runs the first on each shard or sequence.
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ _LC_STREAM = 0xC2B2AE3D27D4EB4F  # xor-ed into the seed of loop verification's d
 _RELOC_STREAM = 0x165667B19E3779F9  # and of relocalization's
 LcDrawFn = Callable[[int, torch.Tensor], torch.Tensor]
 RelocDrawFn = Callable[[int, torch.Tensor, int], tuple]
+CrossDrawFn = Callable[[int, int, torch.Tensor], torch.Tensor]
 
 
 def _map_points_per_keypoint(kps_valid, m_train, point_ok, points3d):
@@ -124,6 +131,7 @@ class SlamSystem:
     pnp_draw_fn: PnpDrawFn | None = None
     lc_draw_fn: LcDrawFn | None = None
     reloc_draw_fn: RelocDrawFn | None = None
+    cross_draw_fn: CrossDrawFn | None = None  # dist/timeshard.py's cross-segment verification
 
     def __post_init__(self) -> None:
         if self.tracking not in ("vo", "pnp"):
@@ -500,20 +508,41 @@ class SlamSystem:
         valid = torch.from_numpy(np.arange(n_chunks * B) < n).reshape(n_chunks, B)
         chunks = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
         chunks = chunks.reshape(n_chunks, B, *frames.shape[1:])
+        carry, raw = self._sequence_raw(chunks, valid, carry, seed)
+        return self._fold_sequence(raw, n, carry)
 
+    def _sequence_raw(self, chunks: torch.Tensor, chunk_valid: torch.Tensor, carry: tuple, seed: int = 0):
+        """``run_sequence``'s chunk loop → (final carry, raw outputs), as the reference's ``_sequence_impl``.
+
+        ``chunks`` (C, B, H, W) uint8 on ``device``; ``chunk_valid`` (C, B)
+        bool on the host; ``carry`` from ``initial_carry``.  The outputs are
+        read back once, stacked along the chunk axis as numpy: ``poses``,
+        ``pose_ok``, ``num_matches``, ``num_inliers``, ``kf_enabled``,
+        ``reloc_ok``; with BA ``ba_ran``, ``ba_costs`` and the window
+        snapshot ``ba_kf_id``, ``ba_kf_valid``, ``ba_kf_R``, ``ba_kf_t``;
+        with loop closure ``loop``, a ``LoopResult`` of (C, B) arrays.
+        Nothing is folded.
+        """
         outs: dict[str, list] = {}
-        for c in range(n_chunks):
-            carry, out = self._step(carry, chunks[c], valid[c], seed)
+        for c in range(chunks.shape[0]):
+            carry, out = self._step(carry, chunks[c], chunk_valid[c], seed)
             for k, v in out.items():
                 outs.setdefault(k, []).append(v)
         loop_parts = outs.pop("loop", None)
-        host = {k: torch.stack(v).cpu().numpy() for k, v in outs.items()}
+        raw = {k: torch.stack(v).cpu().numpy() for k, v in outs.items()}
+        if loop_parts is not None:
+            raw["loop"] = LoopResult(*(torch.stack(parts).cpu().numpy() for parts in zip(*loop_parts)))
+        return carry, raw
 
+    def _fold_sequence(self, host: dict, n: int, carry: tuple) -> dict:
+        """``run_sequence``'s result from ``_sequence_raw``'s outputs over ``n`` real frames: the BA
+        snapshots and then the pose graph folded into the trajectory on the host."""
+        B = self.config.batch_size
         poses = host["poses"].reshape(-1, 4, 4)[:n]
         kf_fids = [int(f) for f in np.nonzero(host["kf_enabled"].reshape(-1)[:n])[0]]
         loops: list[dict] = []
-        if loop_parts is not None:
-            lres = LoopResult(*(torch.stack(parts).cpu().numpy() for parts in zip(*loop_parts)))
+        if "loop" in host:
+            lres = host["loop"]
             succ = lres.success.reshape(-1)[:n]
             matched = lres.matched_keyframe_id.reshape(-1)[:n]
             n_inl = lres.num_inliers.reshape(-1)[:n]

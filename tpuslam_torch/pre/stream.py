@@ -9,7 +9,9 @@ row filters — and anything else raises.  Video input is not ported yet.
 
 Undistortion is not done here: it is a gather on the device inside the
 pipeline (``tpuslam_torch.common.camera``).  ``device_prefetch`` stages the
-chunks of ``FrameStream.batches()`` on the device ahead of their use.
+chunks of ``FrameStream.batches()`` on the device ahead of their use;
+``frames_to_memmap`` decodes a stream once to disk for the time-sharded
+drivers.
 """
 
 from __future__ import annotations
@@ -197,6 +199,36 @@ class FrameStream:
         t.join()
         if errors:
             raise errors[0]
+
+
+def frames_to_memmap(
+    stream: FrameStream,
+    indices: list[int] | None = None,
+    path: str | Path | None = None,
+) -> np.memmap:
+    """Decode a stream once into a disk-backed (N, H, W) uint8 memmap.
+
+    Port of ``tpuslam/pre/stream.py::frames_to_memmap``.  The time-sharded
+    drivers (``dist/timeshard.py``) slice one long sequence into per-shard
+    windows; a memmap leaves the frames to the page cache, and slicing a
+    shard's window reads only its frames, where an in-RAM stack of the
+    whole video holds ~0.7 MB a frame.  ``path`` defaults to a new file in
+    the temporary directory, which the caller removes (``mm.filename``).
+    """
+    import tempfile
+
+    if indices is None:
+        indices = stream.frame_indices()
+    first, _ = stream.read_frame(indices[0])
+    if path is None:
+        with tempfile.NamedTemporaryFile(prefix="tpuslam_torch_frames_", suffix=".u8", delete=False) as f:
+            path = f.name
+    mm = np.memmap(path, dtype=np.uint8, mode="w+", shape=(len(indices), *first.shape))
+    mm[0] = first
+    for row, idx in enumerate(indices[1:], start=1):
+        mm[row] = stream.read_frame(idx)[0]
+    mm.flush()
+    return mm
 
 
 def device_prefetch(
