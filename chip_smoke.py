@@ -33,7 +33,31 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    turns (fused, kernel 1, kernel 1, fused) for frames/s of each; the
    kernels' device time a chunk is set against the timed chunk of either
    path (``[main] kernels``, ``[pyramid] kernels``);
-7. pnp — PnP tracking (``tracking="pnp"``) with ``configs/`` over the same
+7. the last modules, each fatal, together under 60 s:
+   fast — VO with ``configs/fast`` (512 hypotheses) over the same 96 frames
+   at batch 16, a warm-up pass, then timed passes in turns with the main
+   path (main, fast, fast, main): kernels 1-4 six launches each, kernel 5
+   none, the main path's gates; kernel 4 at (16, 512, 1024) against its
+   twin at rtol 1e-5 with its device ms and bound;
+   exact-brief — ``FeatureDetector`` with ``BriefQuantizedBins`` 0 on 2
+   full-width frames, card against CPU: keypoints and descriptors identical,
+   angles within 1e-4 deg; kernel 1 launched once, kernels 2-3 never; ms a
+   frame of the exact orientation + BRIEF beside the quantised stage on the
+   main path's 16 frames;
+   single — on fixture frames 0 and 1: ``undistort_image``, ``detect``,
+   ``compute`` and ``detect_and_compute`` on the card equal to the CPU and to
+   row 0 of the batch call, ``FeatureMatcher.match`` equal to
+   ``match_descriptors``, ``PoseEstimator.estimate`` with recorded draws card
+   against CPU (integer fields identical, R 1e-4, t 1e-3); launches 4, 3, 3
+   and 1 of kernels 1-4; kernels 1-4 at these B = 1 shapes against their
+   twins, with device ms and bounds;
+   vocab-fit — ``Vocabulary.fit`` on the card against the CPU on the 10
+   fixture frames' descriptors, flat (256 words) and a (16, 16) tree:
+   centroids identical, IDF within 1e-6, seconds of each;
+   profiling — ``StageTimer`` and ``time_fn`` around one main-path chunk,
+   and ``device_trace`` of one chunk: its Chrome trace must name kernels of
+   the main path among its CUDA kernel events;
+8. pnp — PnP tracking (``tracking="pnp"``) with ``configs/`` over the same
    96 frames at batch 16, a warm-up pass and a timed pass: kernels 1-4 six
    launches each, kernel 5 none; the trajectory gates of the VO paths; at
    least 30% of the valid points the keyframe window observes seen in >= 2
@@ -46,7 +70,7 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    the chunk, device kernels a chunk (``torch.profiler``), and the time a
    call of ``ransac_pnp`` and ``project_associate``, the two branches the
    tracker takes only where a frame needs them;
-8. slam, slam-pnp — ``SlamSystem(vocabulary=None).run_sequence`` (loop closure
+9. slam, slam-pnp — ``SlamSystem(vocabulary=None).run_sequence`` (loop closure
    off) at the reference's defaults (window 8, 4096 points, BA every 4
    keyframes, 4 LM steps over 512 active points) over the same 96 frames, in
    VO mode and in PnP mode, a warm-up pass and a timed pass: kernels 1-4
@@ -61,7 +85,7 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    against the main path's, BA ms a call and the fold's ms a chunk
    (synchronised on either side), device kernels a chunk
    (``torch.profiler``) and the BA cost ratios;
-9. slam-lc, slam-lc-pnp — full SLAM with loop closure:
+10. slam-lc, slam-lc-pnp — full SLAM with loop closure:
    ``SlamSystem(vocabulary="configs/vocabulary_tree.npz").run_sequence`` at
    the reference's defaults (``configs/loop_closure.yml``: VerifyBudget 4,
    512 keyframes, redundancy eviction; relocalization budget 2; the pose
@@ -79,7 +103,7 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    frames x 1024 five-point samples x 10 candidates, 1024 matches; masked
    candidates hold NaN) against its twin at rtol 1e-5 on the unmasked rows,
    and the pose graph's PCG on a 300-node drift graph, card against CPU;
-10. stream, stream-pnp — the streaming driver ``SlamSystem.run`` with the
+11. stream, stream-pnp — the streaming driver ``SlamSystem.run`` with the
    tree vocabulary over host numpy chunks shaped as ``FrameStream.batches``
    yields them, staged on the card by ``device_prefetch``, in VO and in PnP
    mode, a warm-up pass and a timed pass: the ``[slam-lc]`` gates (kernels
@@ -91,7 +115,7 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    identical, the raw trajectory bit-equal, the final (pose-graph) poses
    bit-equal or, with the op that differs named, within R 1e-4 / t 1e-3;
    the host-to-device time a chunk with and without prefetch;
-11. localize — ``SlamSystem(tracking="pnp", localization_only=True)``
+12. localize — ``SlamSystem(tracking="pnp", localization_only=True)``
    through ``run(warm_start=...)`` against the map and DB of the
    ``[stream-pnp]`` run, read back from its file, over the 96 frames,
    over frames 40..95 (an unknown start: frame 0 bootstraps by
@@ -105,7 +129,7 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    frames/s from scratch, the marginal rate (192 - 96) / (t192 - t96) and
    ``max_memory_allocated`` over 96 and 192 frames; the memory a run's
    result keeps on the card may grow by at most 4 MiB from 96 to 192.
-12. timeshard — ``run_timesharded`` (VO, ``configs/``) over 192 frames cut
+13. timeshard — ``run_timesharded`` (VO, ``configs/``) over 192 frames cut
    into 4 time shards at batch 16 (S 48, V 16: four chunks a shard), the
    shards in turn on the card: kernels 1-4 exactly 16 launches each, kernel 5
    none; each shard's raw trajectory and ``pose_ok`` bit-equal to its window
@@ -114,7 +138,7 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    against ``process_sequence`` over the same 192 frames < 5% of its path
    length; frames/s of both (the single run before and after), the
    stitch's host ms;
-13. timeshard-slam, timeshard-slam-pnp — ``run_timesharded_system`` with
+14. timeshard-slam, timeshard-slam-pnp — ``run_timesharded_system`` with
    the tree vocabulary at the reference's defaults over the same 192 frames
    and 4 shards, in VO and in PnP mode: kernels 1-4 at least 16 launches
    each, kernel 5 none; finite poses, core ``pose_ok`` >= 90%; BA events,
@@ -127,12 +151,12 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    1e-3); frames/s against ``run_sequence``'s (before and after), the loop
    candidates each verifies, the shards', their folds', the stitch's, the
    cross pass's and the global pose graph's host time and the graph's N;
-14. multiseq — ``shard_sequence_program`` with one PnP SLAM sequence (tree
+15. multiseq — ``shard_sequence_program`` with one PnP SLAM sequence (tree
    vocabulary) per card over the 96 frames (one sequence on one card):
    kernels 1-3 six launches a sequence, kernel 4 at least that, kernel 5
    none; each sequence bit-equal to ``run_sequence`` with its seed;
    aggregate frames/s;
-15. cli-timeshard — ``python -m tpuslam_torch.cli -c configs -v
+16. cli-timeshard — ``python -m tpuslam_torch.cli -c configs -v
    tests/data/images --timeshard 2 --slam --batch-size 4 --stats``
    (through ``frames_to_memmap``): exit 0, 10 trajectory rows.
 Each phase from 7 on prints its seconds.
@@ -592,6 +616,301 @@ def check_trajectory(label: str, result, run_s: float, card: str) -> float:
     if z_dominant < 0.9 or poses[9, 2, 3] <= 0:
         raise AssertionError(f"{label}: motion is not dominantly along +z")
     return fps
+
+
+def shape_record(label: str, got, want, fn, plain_fn, exact: bool, work, shape) -> dict:
+    """A kernel at another shape than its main record's: held against its twin (exact, or kernel 4 at
+    RTOL_MSAC), its device ms, its twin's and its bound."""
+    if exact:
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{label}: kernel disagrees with its twin at {int((g != w).sum())} elements")
+        err = 0.0
+    else:
+        err = require_msac_close(label, got[0], want[0])
+    rec = {"shape": list(shape), "max_abs_err": err, "ms": time_ms(fn), "plain_ms": time_ms(plain_fn, reps=5),
+           "bound_ms": work.bound_us() / 1e3, "bound_by": work.bound_by()}
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    log(f"[kernels] {label} at {tuple(shape)}: {'exact' if exact else f'within rtol {RTOL_MSAC}'}, kernel "
+        f"{rec['ms']:.4f} ms, twin {rec['plain_ms']:.4f} ms, bound {1e3 * rec['bound_ms']:.2f} us "
+        f"({rec['bound_by']}), {100 * rec['bound_share']:.1f}% of bound")
+    return rec
+
+
+def main_blur_kps(pipeline, frames: torch.Tensor):
+    """Kernel 1's blur and the selected keypoints of undistorted frames, as the main path makes them."""
+    from tpuslam_torch.common.camera import undistort_batch
+
+    und = undistort_batch(frames, pipeline.undistort_idx, pipeline.undistort_valid)
+    return pipeline.detector._detect_level(und, pipeline.detector.config.max_keypoints)
+
+
+def phase_fast(main_pipeline, config_dir: Path, chunks: torch.Tensor, valid: torch.Tensor, card: str,
+               uses) -> dict:
+    """VO with configs/fast (512 hypotheses) at batch 16 over the 96 frames, timed in turns with the
+    main path; kernel 4 at (16, 512, 1024) against its twin."""
+    from tpuslam_torch.common.camera import Camera
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.kernels import pose as kp
+    from tpuslam_torch.model.slam import SlamPipeline
+
+    fast_dir = config_dir / "fast"
+    cfg = SlamConfig.from_yaml_dir(fast_dir, batch_size=BATCH)
+    if cfg.pose.num_hypotheses != 512:
+        raise AssertionError(f"configs/fast reads {cfg.pose.num_hypotheses} hypotheses, not 512")
+    fast = SlamPipeline(Camera.from_yaml(fast_dir / "camera.yml"), cfg, device="cuda")
+    drive(fast, chunks, valid, seed=1)  # warm-up
+    fps = {"main": [], "fast": []}
+    counts = None
+    for which in ("main", "fast", "fast", "main"):  # in turns, against drift
+        result, run_s, c, _ = drive(fast if which == "fast" else main_pipeline, chunks, valid, seed=0)
+        if which == "fast" and counts is None:
+            check_launches("fast", c, {**{k: chunks.shape[0] for k in uses}, "fused_frontend_nms_batch": 0})
+            counts = c
+        fps[which].append(check_trajectory(f"fast ({which})", result, run_s, card))
+    log(f"[fast] frames/s configs/fast {fps['fast']} against the main path's {fps['main']} in turns on {card}")
+    blur, kps = main_blur_kps(fast, chunks[0])
+    E, P = msac_inputs(fast, blur, kps)
+    shape = (*E.shape[:2], P.shape[-1] // 5)
+    if shape != (BATCH, 512, 1024):
+        raise AssertionError(f"kernel 4 at configs/fast's chunk has shape {shape}")
+    rec = shape_record("msac_scores (configs/fast)", (kp.msac_scores(E, P),), (kp.msac_scores_reference(E, P),),
+                       lambda: kp.msac_scores(E, P), lambda: kp.msac_scores_reference(E, P), exact=False,
+                       work=kp.msac_work(*shape), shape=shape)
+    return {"launches": counts, "fps": fps["fast"], "main_fps": fps["main"], "msac_scores": rec}
+
+
+def same_keypoints(label: str, a, b, angle_atol: float) -> float:
+    """Keypoints identical but for their angles, held to ``angle_atol`` degrees; the largest angle difference."""
+    for name in ("xy", "response", "valid"):
+        if not torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()):
+            raise AssertionError(f"{label}: keypoint {name} differs")
+    err = float((a.angle.cpu() - b.angle.cpu()).abs().max()) if a.angle.numel() else 0.0
+    if err > angle_atol:
+        raise AssertionError(f"{label}: angles differ by {err} deg")
+    return err
+
+
+def phase_exact_brief(pipeline, config_dir: Path, frames_np: np.ndarray, card: str) -> dict:
+    """FeatureDetector with BriefQuantizedBins 0 on 2 full-width frames, card against CPU; kernel 1 launched,
+    kernels 2-3 not; ms a frame of the exact stage beside the quantised one on the main path's chunk."""
+    import dataclasses
+
+    from tpuslam_torch.config.schema import DetectorConfig
+    from tpuslam_torch.frontend.detector import FeatureDetector
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = dataclasses.replace(DetectorConfig.from_yaml(config_dir / "feature_detector.yml"), brief_quantized_bins=0)
+    gpu, cpu = FeatureDetector(cfg, device="cuda"), FeatureDetector(cfg, device="cpu")
+    x = torch.from_numpy(frames_np[:2].copy())
+    gpu.detect_and_compute_batch(x.cuda())  # warm-up
+    reset_launch_counts()
+    kg, dg = gpu.detect_and_compute_batch(x.cuda())
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_launches("exact-brief", counts, {"fused_frontend_batch": 1, "extract_brief_patches": 0,
+                                           "brief_own_bin_dots": 0, "msac_scores": 0, "fused_frontend_nms_batch": 0})
+    kc, dc = cpu.detect_and_compute_batch(x)
+    angle_err = same_keypoints("exact-brief card vs CPU", kg, kc, 1e-4)
+    if not torch.equal(dg.cpu(), dc):
+        raise AssertionError(f"exact-brief: {int((dg.cpu() != dc).any(-1).sum())} descriptors differ between "
+                             "the card and the CPU")
+    # the exact stage against the quantised one on the main path's 16 frames, the same blur and keypoints
+    blur, kps = main_blur_kps(pipeline, torch.from_numpy(frames_np[:BATCH]).cuda())
+    exact_ms = synced_ms(lambda: gpu.compute_from_blurred(blur, kps)) / BATCH
+    quant_ms = synced_ms(lambda: pipeline.detector.compute_from_blurred(blur, kps)) / BATCH
+    out = {"launches": counts, "keypoints": int(kc.valid.sum()), "max_angle_diff_deg": angle_err,
+           "exact_ms_per_frame": exact_ms, "quantized_ms_per_frame": quant_ms}
+    log(f"[exact-brief] card == CPU on 2 frames: {out['keypoints']} keypoints, descriptors identical, max angle "
+        f"diff {angle_err:.2e} deg; ms a frame (batch {BATCH}, synchronised): exact orientation + BRIEF "
+        f"{exact_ms:.3f}, quantised (kernels 2-3) {quant_ms:.3f} on {card}")
+    return out
+
+
+def phase_single(pipeline, camera, frames_np: np.ndarray, card: str) -> dict:
+    """The single-image API and the single-pair facades on fixture frames 0 and 1, card against CPU and
+    against row 0 of the batch call; kernels 1-4 at their B = 1 shapes against their twins."""
+    from tpuslam_torch.common.camera import undistort_batch, undistort_image
+    from tpuslam_torch.frontend.brief import orientations_from_patches, quantize_angles
+    from tpuslam_torch.frontend.detector import FeatureDetector
+    from tpuslam_torch.frontend.fast import detect_keypoints
+    from tpuslam_torch.frontend.matcher import FeatureMatcher, match_descriptors
+    from tpuslam_torch.frontend.pose import PoseEstimator
+    from tpuslam_torch.kernels import brief as kb
+    from tpuslam_torch.kernels import frontend as kf
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.kernels import pose as kp
+
+    cfg = pipeline.config
+    gpu = pipeline.detector
+    cpu = FeatureDetector(cfg.detector, device="cpu")
+    idx, ok = pipeline.undistort_idx, pipeline.undistort_valid
+    frames = torch.from_numpy(frames_np[:2].copy())
+    reset_launch_counts()
+    und = [undistort_image(frames[i].cuda(), idx, ok, normalize=False) for i in (0, 1)]
+    norm = undistort_image(frames[0].cuda(), idx, ok)
+    k_det = gpu.detect(und[1])
+    c = gpu.config
+    fast_args = dict(threshold=c.intensity_threshold, contiguous=c.contiguous_pixels_threshold,
+                     nms=c.non_max_suppression, window=c.suppression_window_size, max_keypoints=c.max_keypoints)
+    k_fast = detect_keypoints(und[1], **fast_args)
+    k_cmp, d_cmp = gpu.compute(und[1], k_det)
+    kd, dd = zip(*(gpu.detect_and_compute(u) for u in und))
+    matcher = FeatureMatcher(cfg.matcher)
+    m = matcher.match(dd[0], dd[1], kd[0], kd[1])
+    pts1 = kd[0].xy[m.query_idx.clamp_min(0)]
+    pts2 = kd[1].xy[m.train_idx.clamp_min(0)]
+    n_valid = int(m.valid.sum())
+    draws = torch.from_numpy(np.random.default_rng(5).integers(0, max(n_valid, 1), (cfg.pose.num_hypotheses, 8)))
+    pose = PoseEstimator(camera, cfg.pose, device="cuda").estimate(pts1, pts2, m.valid, draws=draws)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_launches("single", counts, {"fused_frontend_batch": 5, "extract_brief_patches": 3,
+                                      "brief_own_bin_dots": 3, "msac_scores": 1, "fused_frontend_nms_batch": 0})
+    # card == CPU, and == row 0 of the batch call
+    und_c = [undistort_image(frames[i], idx.cpu(), ok.cpu(), normalize=False) for i in (0, 1)]
+    batch_und = undistort_batch(frames.cuda(), idx, ok)
+    if not all(torch.equal(u.cpu(), c) and torch.equal(u, b) for u, c, b in zip(und, und_c, batch_und)):
+        raise AssertionError("undistort_image differs from the CPU or from undistort_batch")
+    if not torch.equal(norm.cpu(), undistort_image(frames[0], idx.cpu(), ok.cpu())):
+        raise AssertionError("undistort_image (normalised) differs between the card and the CPU")
+    same_keypoints("detect card vs CPU", k_det, cpu.detect(und_c[1]), 0.0)
+    same_keypoints("detect_keypoints card vs CPU", k_fast, detect_keypoints(und_c[1], **fast_args), 0.0)
+    same_keypoints("detect_keypoints vs detect", k_fast, k_det, 0.0)
+    kc, dc = cpu.compute(und_c[1], cpu.detect(und_c[1]))
+    err = same_keypoints("compute card vs CPU", k_cmp, kc, 1e-3)
+    kb_, db_ = gpu.detect_and_compute_batch(torch.stack(und))
+    for i in (0, 1):
+        same_keypoints("detect_and_compute vs the batch row", kd[i], type(kb_)(*(f[i] for f in kb_)), 0.0)
+        if not torch.equal(dd[i], db_[i]):
+            raise AssertionError("detect_and_compute differs from the batch row")
+    if not (torch.equal(d_cmp.cpu(), dc) and torch.equal(d_cmp, dd[1])):
+        raise AssertionError("compute differs from the CPU or from detect_and_compute")
+    want_m = match_descriptors(dd[0], dd[1], kd[0].valid, kd[1].valid, kd[0].xy, kd[1].xy,
+                               ratio_threshold=cfg.matcher.ratio_test_threshold,
+                               max_jump_radius=cfg.matcher.max_jump_radius, use_ratio_test=cfg.matcher.use_ratio_test,
+                               filter_matches=cfg.matcher.filter_matches,
+                               good_matches_count=cfg.matcher.good_matches_count)
+    if not all(torch.equal(a, b) for a, b in zip(m, want_m)):
+        raise AssertionError("FeatureMatcher.match differs from match_descriptors")
+    pose_c = PoseEstimator(camera, cfg.pose, device="cpu").estimate(pts1.cpu(), pts2.cpu(), m.valid.cpu(), draws=draws)
+    if not (bool(pose.success) == bool(pose_c.success) and int(pose.num_inliers) == int(pose_c.num_inliers)
+            and torch.equal(pose.inliers.cpu(), pose_c.inliers)):
+        raise AssertionError("PoseEstimator: integer fields differ between the card and the CPU")
+    r_err = float((pose.R.cpu() - pose_c.R).abs().max())
+    t_err = float((pose.t.cpu() - pose_c.t).abs().max())
+    if r_err > 1e-4 or t_err > 1e-3:
+        raise AssertionError(f"PoseEstimator: R differs by {r_err}, t by {t_err}")
+    # kernels 1-4 at the B = 1 shapes the single-image calls and the facade launch
+    args = dict(threshold=c.intensity_threshold, contiguous=c.contiguous_pixels_threshold, taps=gpu.blur_kernel)
+    one = und[1][None]
+    shapes = {"fused_frontend_batch": shape_record(
+        "fused_frontend_batch (one image)", kf.fused_frontend_batch(one, **args),
+        kf.fused_frontend_reference(one, **args), lambda: kf.fused_frontend_batch(one, **args),
+        lambda: kf.fused_frontend_reference(one, **args), True, kf.frontend_work(*one.shape), one.shape)}
+    blur = kf.fused_frontend_batch(one, **args)[0]
+    kps1 = type(k_det)(*(f[None] for f in k_det))
+    patches = kb.extract_brief_patches(blur, kps1.xy, c.patch_size)
+    shapes["extract_brief_patches"] = shape_record(
+        "extract_brief_patches (one image)", (patches,), (kb.extract_brief_patches_reference(blur, kps1.xy, c.patch_size),),
+        lambda: kb.extract_brief_patches(blur, kps1.xy, c.patch_size),
+        lambda: kb.extract_brief_patches_reference(blur, kps1.xy, c.patch_size), True,
+        kb.extract_patches_work(*blur.shape, kps1.xy.shape[1], c.patch_size), patches.shape)
+    bins = quantize_angles(orientations_from_patches(patches, gpu.moment_weights, kps1, c.patch_size,
+                                                     blur.shape[-2:]), c.brief_quantized_bins)
+    shapes["brief_own_bin_dots"] = shape_record(
+        "brief_own_bin_dots (one image)", (kb.brief_own_bin_dots(patches, bins, gpu.bin_weights),),
+        (kb.brief_own_bin_dots_reference(patches, bins, gpu.bin_weights_3d),),
+        lambda: kb.brief_own_bin_dots(patches, bins, gpu.bin_weights),
+        lambda: kb.brief_own_bin_dots_reference(patches, bins, gpu.bin_weights_3d), True,
+        kb.own_bin_dots_work(bins, gpu.bin_weights), (1, *bins.shape[1:], gpu.bin_weights_3d.shape[-1]))
+    x1, x2, v, thr = msac_single_inputs(pipeline, pts1, pts2, m.valid)
+    E = torch.from_numpy(np.random.default_rng(6).normal(size=(1, cfg.pose.num_hypotheses, 9)).astype(np.float32)).cuda()
+    P = kp.build_msac_operand(x1, x2, v, thr)
+    shapes["msac_scores"] = shape_record(
+        "msac_scores (one pair)", (kp.msac_scores(E, P),), (kp.msac_scores_reference(E, P),),
+        lambda: kp.msac_scores(E, P), lambda: kp.msac_scores_reference(E, P), False,
+        kp.msac_work(1, E.shape[1], P.shape[-1] // 5), (1, E.shape[1], P.shape[-1] // 5))
+    out = {"launches": counts, "keypoints": int(k_det.count()), "matches": n_valid,
+           "inliers": int(pose.num_inliers), "max_angle_diff_deg": err, "pose_R_err": r_err, "pose_t_err": t_err,
+           "kernels": shapes}
+    log(f"[single] card == CPU == batch row 0: undistort_image, detect ({out['keypoints']} keypoints), "
+        f"detect_keypoints, compute, "
+        f"detect_and_compute; FeatureMatcher == match_descriptors ({n_valid} matches); PoseEstimator with "
+        f"recorded draws {out['inliers']} inliers, R err {r_err:.2e}, t err {t_err:.2e}; launches {counts}")
+    return out
+
+
+def msac_single_inputs(pipeline, pts1: torch.Tensor, pts2: torch.Tensor, valid: torch.Tensor):
+    """One pair's normalised matches (1, M, 2), mask and threshold, as ``estimate_relative_pose`` builds them."""
+    from tpuslam_torch.common.geometry import normalize_points
+
+    K = pipeline.K
+    focal = 0.5 * (K[0, 0] + K[1, 1])
+    return (normalize_points(K, pts1[None]), normalize_points(K, pts2[None]), valid[None],
+            (pipeline.config.pose.inlier_threshold_px / focal) ** 2)
+
+
+def phase_vocab_fit(pipeline, frames_np: np.ndarray, card: str) -> dict:
+    """Vocabulary.fit on the card against the CPU on the fixture frames' descriptors, flat and a small tree."""
+    from tpuslam_torch.backend.vocabulary import Vocabulary
+
+    kps, desc = pipeline.detector.detect_and_compute_batch(torch.from_numpy(frames_np[:10].copy()).cuda())
+    docs = [d[v].cpu().numpy() for d, v in zip(desc, kps.valid)]
+    out = {"descriptors": int(sum(len(d) for d in docs))}
+    for label, kw in (("flat", dict(num_words=256)), ("tree", dict(branching=(16, 16)))):
+        seconds = {}
+        fits = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            fits[dev] = Vocabulary.fit(docs, device=dev, **kw)
+            seconds[dev] = time.perf_counter() - t0
+        g, c = fits["cuda"], fits["cpu"]
+        if not (g.centroids.is_cuda and torch.equal(g.centroids.cpu(), c.centroids)):
+            raise AssertionError(f"vocab-fit ({label}): centroids differ between the card and the CPU")
+        if (g.coarse is None) != (c.coarse is None) or (g.coarse is not None and not torch.equal(g.coarse.cpu(), c.coarse)):
+            raise AssertionError(f"vocab-fit ({label}): coarse words differ between the card and the CPU")
+        idf_err = float((g.idf.cpu() - c.idf).abs().max())
+        if idf_err > 1e-6:
+            raise AssertionError(f"vocab-fit ({label}): IDF differs by {idf_err}")
+        out[label] = {"words": g.num_words, "seconds_card": seconds["cuda"], "seconds_cpu": seconds["cpu"],
+                      "idf_err": idf_err}
+        log(f"[vocab-fit] {label}: {g.num_words} words from {out['descriptors']} descriptors of 10 frames, card == "
+            f"CPU (IDF err {idf_err:.1e}); {seconds['cuda']:.2f} s on the card, {seconds['cpu']:.2f} s on the CPU")
+    return out
+
+
+def phase_profiling(pipeline, chunks: torch.Tensor, valid: torch.Tensor, trace_dir: Path) -> dict:
+    """time_fn and StageTimer around one main-path chunk, and device_trace writing a trace of one chunk
+    whose CUDA kernel events name kernels of the main path."""
+    from tpuslam_torch.utils.profiling import StageTimer, device_trace, time_fn
+
+    state = pipeline.initial_state()
+
+    def chunk():
+        return pipeline.process_chunk(chunks[0], valid[0], state)[0].poses
+
+    timer = StageTimer()
+    for _ in range(2):
+        with timer.stage("chunk"):
+            chunk()
+            torch.cuda.synchronize()
+    timed = time_fn(chunk, warmup=1, iters=3)
+    with device_trace(trace_dir):
+        chunk()
+    path = trace_dir / "trace.json"
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    ours = sorted(n for n in names if any(k in n for k in ("frontend_kernel", "extract_kernel", "own_bin_kernel",
+                                                            "msac_kernel")))
+    if not ours:
+        raise AssertionError(f"device_trace: no kernel of the main path among {len(names)} kernel names")
+    out = {"stage_timer": timer.report(), "time_fn": timed, "trace_bytes": path.stat().st_size,
+           "trace_kernel_events": sum(1 for e in events if e.get("cat") == "kernel"), "trace_names": ours}
+    log(f"[profiling] StageTimer chunk {out['stage_timer']['chunk']['mean_ms']:.2f} ms (2 calls), time_fn "
+        f"{timed['per_call_ms']:.2f} ms a chunk (3 calls, synchronised); trace {out['trace_bytes']} bytes, "
+        f"{out['trace_kernel_events']} kernel events, naming {ours}")
+    return out
 
 
 def count_kernels(fn) -> int | None:
@@ -1864,6 +2183,17 @@ def main() -> int:
     log(f"[pyramid] {n_levels} levels, {N_FRAMES} frames batch {BATCH}: frames/s with kernel 5 "
         f"{pyr_fps[True]}, with kernel 1 + NMS {pyr_fps[False]} on {card}")
 
+    # The last modules: the configs/fast profile, exact BRIEF, the single-image API and facades,
+    # Vocabulary.fit and the profiling utilities.
+    t_new = time.perf_counter()
+    fast = timed_phase("fast", phase_fast, pipeline, config_dir, chunks, valid, card, main_uses)
+    exact = timed_phase("exact-brief", phase_exact_brief, pipeline, config_dir, frames_np, card)
+    single = timed_phase("single", phase_single, pipeline, camera, frames_np, card)
+    vocab_fit = timed_phase("vocab-fit", phase_vocab_fit, pipeline, frames_np, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as trace_dir:
+        profiling = timed_phase("profiling", phase_profiling, pipeline, chunks, valid, Path(trace_dir))
+    log(f"[new phases] fast, exact-brief, single, vocab-fit, profiling took {time.perf_counter() - t_new:.1f} s")
+
     # PnP tracking: configs/ with tracking="pnp", kernels 1-4 in its two-view stage.
     pnp = timed_phase("pnp", phase_pnp, camera, config_dir, chunks, valid, card, main_uses)
 
@@ -1907,6 +2237,8 @@ def main() -> int:
         r["launches_per_chunk"] = r["launches"] / n_chunks
         r["launches_by_path"] = {"main": main_counts[r["name"]], "pyramid_nms_fused": pyr_counts[True][r["name"]],
                                  "pyramid_kernel1": pyr_counts[False][r["name"]],
+                                 "fast": fast["launches"][r["name"]], "exact_brief": exact["launches"][r["name"]],
+                                 "single": single["launches"][r["name"]],
                                  "pnp": pnp["launches"][r["name"]],
                                  "slam": slam["vo"]["launches"][r["name"]],
                                  "slam_pnp": slam["pnp"]["launches"][r["name"]],
@@ -1919,6 +2251,10 @@ def main() -> int:
                                  "timeshard_slam": ts_slam["vo"]["launches"][r["name"]],
                                  "timeshard_slam_pnp": ts_slam["pnp"]["launches"][r["name"]],
                                  "multiseq": multiseq["launches"][r["name"]]}
+        if r["name"] in single["kernels"]:
+            r["single_shape"] = single["kernels"][r["name"]]
+        if r["name"] == "msac_scores":
+            r["fast_shape"] = fast["msac_scores"]
     # the main path's kernel time per chunk, from the kernels phase, against its timed chunk
     chunk_ms = main_chunk_ms
     kernel_ms = sum(r["ms"] * r["launches_per_chunk"] for r in records if r["path"].startswith("main"))
@@ -1944,7 +2280,8 @@ def main() -> int:
                     "main_chunk_ms": chunk_ms, "main_kernel_ms_per_chunk": kernel_ms,
                     "pyramid_chunk_ms": pyr_chunk_ms, "pyramid_kernel_ms_per_chunk": pyr_kernel_ms,
                     "pyramid_fps_nms_fused": pyr_fps[True], "pyramid_fps_kernel1": pyr_fps[False],
-                    "pnp": pnp, "slam": slam["vo"], "slam_pnp": slam["pnp"], "slam_lc": slam_lc["vo"],
+                    "fast": fast, "exact_brief": exact, "single": single, "vocab_fit": vocab_fit,
+                    "profiling": profiling, "pnp": pnp, "slam": slam["vo"], "slam_pnp": slam["pnp"], "slam_lc": slam_lc["vo"],
                     "slam_lc_pnp": slam_lc["pnp"], "pose_graph_pcg": pose_graph, "stream": stream["vo"],
                     "stream_pnp": stream["pnp"], "localize": localize, "timeshard": timeshard,
                     "timeshard_slam": ts_slam["vo"], "timeshard_slam_pnp": ts_slam["pnp"], "multiseq": multiseq,

@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import cv2
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -291,3 +292,98 @@ def test_port_never_imports_jax():
 
     names = [m.name for m in pkgutil.walk_packages(tpuslam_torch.__path__, "tpuslam_torch.")]
     assert "tpuslam_torch.model.slam" in names and "tpuslam_torch.kernels.pose" in names
+
+
+def test_nullvec_minimal_matches():
+    """The MGS nullvector of minimal systems (8×9, 4×5, 2×3): float32 rounding, 2e-5 after the sign."""
+    rng = np.random.default_rng(11)
+    for m, n in ((8, 9), (4, 5), (2, 3)):
+        A = rng.normal(size=(64, m, n)).astype(np.float32)
+        want = np.asarray(jax.jit(jgeo.nullvec_minimal)(jnp.asarray(A)))
+        got = tgeo.nullvec_minimal(torch.from_numpy(A)).numpy()
+        got, want = _sign_aligned(got, want)
+        np.testing.assert_allclose(got, want, atol=2e-5)
+        assert np.abs(np.einsum("bmn,bn->bm", A, got)).max() < 1e-4
+    with pytest.raises(ValueError):
+        tgeo.nullvec_minimal(torch.zeros(3, 3))
+
+
+def test_smallest_eigvec_matches_up_to_sign():
+    """eigh's sign is free: |v·v_ref| = 1 within 1e-5 on well-separated spectra."""
+    rng = np.random.default_rng(12)
+    A = rng.normal(size=(32, 12, 9)).astype(np.float32)
+    ata = np.einsum("bmi,bmj->bij", A, A)
+    want = np.asarray(jgeo.smallest_eigvec(jnp.asarray(ata)))
+    got = tgeo.smallest_eigvec(torch.from_numpy(ata)).numpy()
+    np.testing.assert_allclose(np.abs(np.einsum("bi,bi->b", got, want)), 1.0, atol=1e-5)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-6)
+
+
+def test_points_projection_and_poses_match():
+    """dehomogenize (its ±eps guard too), triangulate_points, project, closest_rotation (up to SVD
+    signs the rotation itself, 1e-5), compose_se3 and pose_matrix: float32 rounding (rtol 1e-5)."""
+    rng = np.random.default_rng(13)
+    Xh = rng.normal(size=(50, 4)).astype(np.float32)
+    Xh[:3, 3] = [0.0, 1e-14, -1e-14]
+    np.testing.assert_allclose(tgeo.dehomogenize(torch.from_numpy(Xh)).numpy(),
+                               np.asarray(jax.jit(jgeo.dehomogenize)(jnp.asarray(Xh))), rtol=1e-6)
+    X = rng.uniform([-3, -2, 4], [3, 2, 30], size=(100, 3)).astype(np.float32)
+    a = 0.05
+    R = np.asarray([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]], np.float32)
+    t = np.asarray([0.1, 0.02, -1.0], np.float32)
+    K = np.asarray([[700, 0, 600], [0, 700, 180], [0, 0, 1]], np.float32)
+    uv, z = tgeo.project(*map(torch.from_numpy, (K, R, t, X)))
+    juv, jz = jax.jit(jgeo.project)(*map(jnp.asarray, (K, R, t, X)))
+    np.testing.assert_allclose(uv.numpy(), np.asarray(juv), rtol=1e-5)
+    np.testing.assert_allclose(z.numpy(), np.asarray(jz), rtol=1e-6)
+    x1 = X[:, :2] / X[:, 2:]
+    Xc = X @ R.T + t
+    x2 = Xc[:, :2] / Xc[:, 2:]
+    P1 = np.hstack([np.eye(3, dtype=np.float32), np.zeros((3, 1), np.float32)])
+    P2 = np.hstack([R, t[:, None]])
+    got = tgeo.triangulate_points(*map(torch.from_numpy, (P1, P2, x1, x2))).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax.jit(jgeo.triangulate_points)(*map(jnp.asarray, (P1, P2, x1, x2)))),
+                               rtol=1e-4)
+    np.testing.assert_allclose(got, X, rtol=1e-3)
+    M = rng.normal(size=(16, 3, 3)).astype(np.float32)
+    Rc = tgeo.closest_rotation(torch.from_numpy(M)).numpy()
+    np.testing.assert_allclose(Rc, np.asarray(jax.jit(jgeo.closest_rotation)(jnp.asarray(M))), atol=1e-5)
+    np.testing.assert_allclose(np.linalg.det(Rc), 1.0, atol=1e-5)
+    R2 = np.array(jax.jit(jgeo.so3_exp)(jnp.asarray(rng.normal(size=(16, 3)).astype(np.float32))))
+    t1, t2 = rng.normal(size=(2, 16, 3)).astype(np.float32)
+    Rs = np.broadcast_to(R, (16, 3, 3)).copy()
+    got = tgeo.compose_se3(*map(torch.from_numpy, (Rs, t1, R2, t2)))
+    want = jax.jit(jgeo.compose_se3)(*map(jnp.asarray, (Rs, t1, R2, t2)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(tgeo.pose_matrix(torch.from_numpy(R2), torch.from_numpy(t2)).numpy(),
+                                  np.asarray(jgeo.pose_matrix(jnp.asarray(R2), jnp.asarray(t2))))
+
+
+def test_exact_path_arrays_carry_no_bin_weights(data_dir):
+    """At BriefQuantizedBins 0 the reference's detector holds no bin weights; its arrays convert and build the port's."""
+    import dataclasses
+
+    from tpuslam.config.schema import DetectorConfig as JDetectorConfig
+    from tpuslam.frontend.detector import FeatureDetector as JDetector
+    from tpuslam_torch.config.schema import DetectorConfig as TDetectorConfig
+    from tpuslam_torch.frontend.detector import FeatureDetector as TDetector
+    from tpuslam_torch.frontend.detector import detector_arrays_numpy
+    from tpuslam_torch.utils.convert import detector_arrays_from_numpy
+
+    path = data_dir.parent.parent / "configs" / "feature_detector.yml"
+    jd = JDetector(dataclasses.replace(JDetectorConfig.from_yaml(path), brief_quantized_bins=0))
+    tcfg = dataclasses.replace(TDetectorConfig.from_yaml(path), brief_quantized_bins=0)
+    assert jd.bin_weights is None and "bin_weights_3d" not in detector_arrays_numpy(tcfg)
+    det_np = {f: np.asarray(getattr(jd.pattern, f)) for f in jd.pattern._fields}
+    det_np.update(blur_kernel=np.asarray(jd.blur_kernel), bin_weights_3d=jd.bin_weights_3d,
+                  moment_weights=np.asarray(jd.moment_weights))
+    conv = detector_arrays_from_numpy(det_np)
+    assert set(conv) == set(detector_arrays_from_numpy(detector_arrays_numpy(tcfg)))
+    td = TDetector(tcfg, device="cpu", arrays=conv)
+    assert td.bin_weights is None and td.bin_weights_3d is None
+    with pytest.raises(KeyError, match="moment_weights"):
+        TDetector(tcfg, device="cpu",
+                  arrays=detector_arrays_from_numpy({k: v for k, v in det_np.items() if k != "moment_weights"}))
+    with pytest.raises(KeyError, match=r"BriefQuantizedBins 16: \['bin_weights_3d'\]"):
+        TDetector(dataclasses.replace(tcfg, brief_quantized_bins=16), device="cpu", arrays=conv)

@@ -214,7 +214,16 @@ def test_detector_batch_matches_reference(kitti_frames, detector_pair):
     np.testing.assert_array_equal(tdesc.numpy(), np.asarray(jdesc))
 
 
-def test_detector_rejects_unported_options(data_dir):
-    cfg = TDetectorConfig()
-    with pytest.raises(NotImplementedError, match="BriefQuantizedBins"):
-        TDetector(dataclasses.replace(cfg, brief_quantized_bins=0), device="cpu")
+def test_detector_rejects_unported_options(kitti_frames):
+    """The schema's default (BriefQuantizedBins 0, exact BRIEF) constructs and agrees with the reference."""
+    jd = JDetector(dataclasses.replace(JDetectorConfig(), max_keypoints=256))
+    td = TDetector(dataclasses.replace(TDetectorConfig(), max_keypoints=256), device="cpu")
+    assert td.config.brief_quantized_bins == 0 and td.bin_weights is None
+    crop = np.ascontiguousarray(kitti_frames[0][100:400, 300:1000])
+    jk, jdesc = jd.detect_and_compute(jnp.asarray(crop))
+    tk, tdesc = td.detect_and_compute(torch.from_numpy(crop))
+    np.testing.assert_array_equal(tk.xy.numpy(), np.asarray(jk.xy))
+    np.testing.assert_array_equal(tk.valid.numpy(), np.asarray(jk.valid))
+    # the reference's CPU blur is FMA-contracted (test_torch_brief.py): on this crop it moves no angle
+    np.testing.assert_allclose(tk.angle.numpy(), np.asarray(jk.angle), atol=1e-4)
+    np.testing.assert_array_equal(tdesc.numpy(), np.asarray(jdesc))

@@ -41,6 +41,16 @@ The streaming driver: ``device_prefetch`` stages distinct chunks bit-equal
 counter stays an ``int``), and ``SlamSystem.run`` split through a
 checkpoint equals the uninterrupted run bit for bit on the card, in VO and
 PnP mode, at small shapes.
+
+The last modules: exact BRIEF (``BriefQuantizedBins: 0``) through the
+detector on full-width frames launches kernel 1 and neither kernel 2 nor 3,
+and gives on the card what it gives on the CPU (keypoints and descriptors
+identical, angles 1e-4 deg); the single-image ``detect``, ``compute`` and
+``detect_and_compute`` run the batch path at B = 1 on the card, equal to
+the CPU and to row 0 of the batch; ``PoseEstimator`` given draws equals the
+CPU (integer fields identical, R 1e-4, t 1e-3); ``Vocabulary.fit`` trains
+the CPU's centroids (IDF 1e-6); ``time_fn`` and ``device_trace`` see the
+card's kernels.
 """
 
 from pathlib import Path
@@ -306,8 +316,8 @@ def _kernel4_case(dev, B, H, M, seed=4):
     return E, kp.build_msac_operand(x1, x2, valid, 1e-6)
 
 
-# ragged in H and M; the smallest; the main path's H and M; M below one 16-byte unit
-@pytest.mark.parametrize("shape", [(3, 300, 777), (1, 1, 1), (2, 1024, 1024), (2, 130, 5)])
+# ragged in H and M; the smallest; the main path's H and M; M below one 16-byte unit; configs/fast's chunk
+@pytest.mark.parametrize("shape", [(3, 300, 777), (1, 1, 1), (2, 1024, 1024), (2, 130, 5), (16, 512, 1024)])
 def test_kernel4_msac_close(dev, shape):
     E, P = _kernel4_case(dev, *shape)
     before = kp.msac_scores.launches
@@ -947,3 +957,139 @@ def test_split_run_equals_single_run_on_card(dev, tmp_path, tracking):
     for i, (g, w) in enumerate(zip(flatten(split["checkpoint"]), flatten(single["checkpoint"]))):
         g, w = (x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x) for x in (g, w))
         np.testing.assert_array_equal(g, w, err_msg=f"checkpoint leaf {i}")
+
+
+def _full_frames(n: int) -> torch.Tensor:
+    return torch.from_numpy(np.stack([decode_png_gray8(p) for p in sorted(IMAGES.glob("*.png"))[:n]]))
+
+
+def _detectors(dev, bins: int, max_keypoints: int = 512):
+    import dataclasses
+
+    from tpuslam_torch.config.schema import DetectorConfig
+    from tpuslam_torch.frontend.detector import FeatureDetector
+
+    cfg = dataclasses.replace(DetectorConfig.from_yaml(IMAGES.parent.parent.parent / "configs" / "feature_detector.yml"),
+                              brief_quantized_bins=bins, max_keypoints=max_keypoints)
+    return FeatureDetector(cfg, device=dev), FeatureDetector(cfg, device="cpu")
+
+
+def _same_keypoints(a, b, angle_atol=1e-4):
+    for f in ("xy", "response", "valid"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()), f
+    torch.testing.assert_close(a.angle.cpu(), b.angle.cpu(), rtol=0, atol=angle_atol)
+
+
+def test_exact_brief_detector_card_equals_cpu(dev):
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+
+    gpu, cpu = _detectors(dev, 0, 1024)
+    frames = _full_frames(2)
+    reset_launch_counts()
+    kg, dg = gpu.detect_and_compute_batch(frames.to(dev))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fused_frontend_batch"] == 1
+    assert counts["extract_brief_patches"] == counts["brief_own_bin_dots"] == 0
+    kc, dc = cpu.detect_and_compute_batch(frames)
+    _same_keypoints(kg, kc)
+    assert torch.equal(dg.cpu(), dc) and int(kc.valid.sum()) > 1000
+
+
+@pytest.mark.parametrize("bins", [0, 16])
+def test_single_image_api_on_card(dev, bins):
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+
+    gpu, cpu = _detectors(dev, bins)
+    frames = _full_frames(2)
+    image = frames[1]
+    reset_launch_counts()
+    k_det = gpu.detect(image.to(dev))
+    k_cmp, d_cmp = gpu.compute(image.to(dev), k_det)
+    k_dac, d_dac = gpu.detect_and_compute(image.to(dev))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fused_frontend_batch"] == 3
+    assert counts["extract_brief_patches"] == counts["brief_own_bin_dots"] == (2 if bins else 0)
+    assert k_det.xy.is_cuda and d_dac.is_cuda
+    _same_keypoints(k_det, cpu.detect(image), angle_atol=0)
+    c_cmp, cd_cmp = cpu.compute(image, cpu.detect(image))
+    _same_keypoints(k_cmp, c_cmp)
+    assert torch.equal(d_cmp.cpu(), cd_cmp) and torch.equal(d_dac, d_cmp)
+    kb, db = gpu.detect_and_compute_batch(frames.to(dev))
+    assert torch.equal(db[1], d_dac) and torch.equal(kb.angle[1], k_dac.angle)
+
+
+def test_detect_keypoints_on_card(dev):
+    """The single-image FAST + NMS + top-k launches kernel 1 once on the card and equals the CPU's."""
+    from tpuslam_torch.frontend.fast import detect_keypoints
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+
+    image = _full_frames(1)[0]
+    args = dict(threshold=20, contiguous=12, window=12, max_keypoints=1024)
+    reset_launch_counts()
+    got = detect_keypoints(image.to(dev), **args)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_frontend_batch"] == 1 and got.xy.is_cuda
+    want = detect_keypoints(image, **args)
+    _same_keypoints(got, want, angle_atol=0)
+    assert got.capacity == 1024 and int(want.count()) > 500
+
+
+def test_pose_estimator_card_equals_cpu(dev):
+    from tpuslam_torch.common.camera import Camera
+    from tpuslam_torch.config.schema import PoseConfig
+    from tpuslam_torch.frontend.pose import PoseEstimator
+
+    cam = Camera.from_yaml(IMAGES.parent.parent.parent / "configs" / "camera.yml")
+    rng = np.random.default_rng(3)
+    M = 600
+    X = np.stack([rng.uniform(-8, 8, M), rng.uniform(-3, 3, M), rng.uniform(6, 40, M)], -1)
+    a = 0.05
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    x1 = X @ cam.K.T
+    x2 = (X @ R.T + [0.1, 0.0, -1.0]) @ cam.K.T
+    pts1 = torch.from_numpy((x1[:, :2] / x1[:, 2:] + rng.normal(0, 0.3, (M, 2))).astype(np.float32))
+    pts2 = torch.from_numpy((x2[:, :2] / x2[:, 2:] + rng.normal(0, 0.3, (M, 2))).astype(np.float32))
+    valid = torch.from_numpy(rng.random(M) > 0.1)
+    draws = torch.from_numpy(rng.integers(0, int(valid.sum()), (512, 8)))
+    cfg = PoseConfig(num_hypotheses=512)
+    got = PoseEstimator(cam, cfg, device=dev).estimate(pts1, pts2, valid, draws=draws)
+    want = PoseEstimator(cam, cfg, device="cpu").estimate(pts1, pts2, valid, draws=draws)
+    assert bool(got.success) and bool(want.success)
+    assert int(got.num_inliers) == int(want.num_inliers) and torch.equal(got.inliers.cpu(), want.inliers)
+    torch.testing.assert_close(got.R.cpu(), want.R, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.t.cpu(), want.t, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("branching", [None, (4, 32)])
+def test_vocabulary_fit_card_equals_cpu(dev, branching):
+    from tpuslam_torch.backend.vocabulary import Vocabulary
+
+    gpu, _ = _detectors(dev, 16)
+    kps, desc = gpu.detect_and_compute_batch(_full_frames(3).to(dev))
+    docs = [d[v].cpu().numpy() for d, v in zip(desc, kps.valid)]
+    got = Vocabulary.fit(docs, num_words=64, iters=4, branching=branching, device=dev)
+    want = Vocabulary.fit(docs, num_words=64, iters=4, branching=branching, device="cpu")
+    assert got.centroids.is_cuda and torch.equal(got.centroids.cpu(), want.centroids)
+    assert (got.coarse is None) == (want.coarse is None) == (branching is None)
+    assert branching is None or torch.equal(got.coarse.cpu(), want.coarse)
+    torch.testing.assert_close(got.idf.cpu(), want.idf, rtol=0, atol=1e-6)
+
+
+def test_profiling_sees_the_card(dev, tmp_path):
+    import json
+
+    from tpuslam_torch.utils.profiling import time_fn
+    from tpuslam_torch.utils.profiling import device_trace
+
+    x = torch.ones(512, 512, device=dev)
+    out = time_fn(lambda: torch.cuda._sleep(1_000_000) or x @ x, warmup=1, iters=3)
+    assert out["per_call_ms"] > 0.1  # the sleeps were waited for
+    frames = _full_frames(1).to(dev)
+    taps = torch.from_numpy(gaussian_kernel().astype(np.float32))
+    with device_trace(tmp_path):
+        kf.fused_frontend_batch(frames, threshold=20, contiguous=12, taps=taps)
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    assert any("frontend" in n for n in names), sorted(names)[:20]

@@ -81,7 +81,7 @@ def pair(cfg_dir, **over):
     tc = dataclasses.replace(TLCConfig.from_yaml(cfg_dir / "loop_closure.yml"), **over)
     voc = cfg_dir / "vocabulary_tree.npz"
     return (JLoopClosure(voc, jc, JMatcherConfig(ratio_test_threshold=0.8)),
-            TLoopClosure(voc, tc, TMatcherConfig(ratio_test_threshold=0.8)))
+            TLoopClosure(voc, tc, TMatcherConfig(ratio_test_threshold=0.8), device="cpu"))
 
 
 def replay_sampler(keys):

@@ -121,7 +121,8 @@ def test_prefix_products_and_scatter_max():
 
 
 def test_unported_modes_raise(data_dir):
-    """PnP tracking and with_features construct, and the five-point solver runs; exact BRIEF still raises."""
+    """PnP tracking and with_features construct, the five-point solver runs, and exact BRIEF (bins 0)
+    constructs and runs a 4-frame chunk: every pair posed, forward along +z."""
     cfg_dir = data_dir.parent.parent / "configs"
     cam = TCamera.from_yaml(cfg_dir / "camera.yml")
     cfg = TSlamConfig.from_yaml_dir(cfg_dir)
@@ -132,9 +133,14 @@ def test_unported_modes_raise(data_dir):
     degenerate = estimate_relative_pose(torch.zeros(1, 8, 2), torch.zeros(1, 8, 2), torch.ones(1, 8, dtype=torch.bool),
                                         torch.eye(3), sample_size=5, num_hypotheses=16)  # SampleSize: 5
     assert degenerate.R.shape == (1, 3, 3) and torch.isfinite(degenerate.R).all()
-    exact = dataclasses.replace(cfg, detector=dataclasses.replace(cfg.detector, brief_quantized_bins=0))
-    with pytest.raises(NotImplementedError):
-        tslam.SlamPipeline(cam, exact, device="cpu")
+    exact = _small(dataclasses.replace(
+        cfg, detector=dataclasses.replace(cfg.detector, brief_quantized_bins=0), batch_size=BATCH))
+    tp_exact = tslam.SlamPipeline(cam, exact, device="cpu", draw_fn=_jax_draws)
+    assert tp_exact.detector.bin_weights is None
+    frames, _, valid = next(FrameStream(data_dir / "images").batches(BATCH))
+    res, state = tp_exact.process_chunk(torch.from_numpy(frames), torch.from_numpy(valid), tp_exact.initial_state())
+    assert res.pose_ok[1:].all() and torch.isfinite(res.poses).all() and state.frame_idx == BATCH
+    assert (res.num_matches[1:] > 20).all() and res.poses[-1, 2, 3] > 1.0
 
 
 def test_cli_writes_kitti_trajectory(tmp_path, data_dir, capsys):

@@ -58,7 +58,7 @@ def _with_ties(vocab: JVocabulary, rng) -> np.ndarray:
 @pytest.mark.parametrize("name", FILES)
 def test_assignments_exact_and_bow_close(name, cfg_dir, descriptors):
     jv = JVocabulary.load(cfg_dir / name)
-    tv = TVocabulary.load(cfg_dir / name)
+    tv = TVocabulary.load(cfg_dir / name, device="cpu")
     rng = np.random.default_rng(1)
     ties = _with_ties(jv, rng)
     for desc, valid in descriptors:
@@ -90,7 +90,7 @@ def test_tree_ties_take_the_lowest_index(cfg_dir):
 
 @pytest.mark.parametrize("name", FILES)
 def test_empty_input_is_the_zero_vector(name, cfg_dir):
-    tv = TVocabulary.load(cfg_dir / name)
+    tv = TVocabulary.load(cfg_dir / name, device="cpu")
     d = torch.zeros((2, 16, 32), dtype=torch.uint8)
     bow = tv.transform(d, torch.zeros((2, 16), dtype=torch.bool))
     assert bow.shape == (2, tv.num_words) and not bow.any()
@@ -98,9 +98,9 @@ def test_empty_input_is_the_zero_vector(name, cfg_dir):
 
 @pytest.mark.parametrize("name", FILES)
 def test_save_load_round_trip(name, cfg_dir, tmp_path):
-    tv = TVocabulary.load(cfg_dir / name)
+    tv = TVocabulary.load(cfg_dir / name, device="cpu")
     tv.save(tmp_path / "v.npz")
-    back = TVocabulary.load(tmp_path / "v.npz")
+    back = TVocabulary.load(tmp_path / "v.npz", device="cpu")
     assert torch.equal(back.centroids, tv.centroids) and torch.equal(back.idf, tv.idf)
     assert (back.coarse is None) == (tv.coarse is None) and (tv.coarse is None or torch.equal(back.coarse, tv.coarse))
     jv = JVocabulary.load(tmp_path / "v.npz")  # the reference reads the port's file

@@ -134,7 +134,7 @@ class LoopClosure:
         vocabulary: Vocabulary | str | Path,
         config: LoopClosureConfig | str | Path,
         matcher_config: MatcherConfig | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         self.device = torch.device(device)
         if not isinstance(vocabulary, Vocabulary):

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd, vmap
 
-from tpuslam_torch.common.geometry import so3_exp, so3_log
+from tpuslam_torch.common.geometry import pose_matrix, so3_exp, so3_log
 
 CG_BLOCK = 16  # CG steps between host reads of the convergence flag
 
@@ -52,13 +52,6 @@ def empty_graph(max_nodes: int, max_edges: int, device: torch.device | str = "cp
     )
 
 
-def _pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """(…, 3, 3) + (…, 3) → (…, 4, 4) with bottom row [0 0 0 1]."""
-    top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.eye(4, dtype=top.dtype, device=top.device)[3:].expand(*top.shape[:-2], 1, 4)
-    return torch.cat([top, bottom], dim=-2)
-
-
 def _se3_log(T: torch.Tensor) -> torch.Tensor:
     """(…, 4, 4) → (…, 6) (ω, ν), first order (ν = the translation): enough near the identity."""
     return torch.cat([so3_log(T[..., :3, :3]), T[..., :3, 3]], dim=-1)
@@ -69,7 +62,7 @@ def _apply_delta(T: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     dR = so3_exp(delta[..., :3])
     R = dR @ T[..., :3, :3]
     t = (dR @ T[..., :3, 3:4])[..., 0] + delta[..., 3:]
-    return _pose(R, t)
+    return pose_matrix(R, t)
 
 
 def _edge_residual(delta_i, delta_j, Ti, Tj, T_meas_inv):
@@ -77,7 +70,7 @@ def _edge_residual(delta_i, delta_j, Ti, Tj, T_meas_inv):
     Ti_new = _apply_delta(Ti, delta_i)
     Tj_new = _apply_delta(Tj, delta_j)
     RiT = Ti_new[:3, :3].T
-    rel = _pose(RiT @ Tj_new[:3, :3], RiT @ (Tj_new[:3, 3] - Ti_new[:3, 3]))
+    rel = pose_matrix(RiT @ Tj_new[:3, :3], RiT @ (Tj_new[:3, 3] - Ti_new[:3, 3]))
     return _se3_log(T_meas_inv @ rel)
 
 

@@ -5,11 +5,12 @@ The subset of ``tools/cli.py`` the port runs::
     python -m tpuslam_torch.cli -c configs -v tests/data/images -o traj.txt \\
         [--tracking vo|pnp] [--batch-size 16] [--stats] [--device cpu] [--nms-fused] \\
         [--slam [--vocabulary V]] [--save-state S.npz] [--resume S.npz] [--localize S.npz] \\
-        [--timeshard N]
+        [--timeshard N] [--debug]
 
 writes a KITTI-format trajectory (12 values per row).  It runs on the card
 unless ``--device cpu`` is given; without a card it fails.  ``--stats`` prints
-one JSON line with the frame count, wall time and pose statistics.
+one JSON line with the frame count, wall time and pose statistics;
+``--debug`` logs at the DEBUG level.
 ``-c configs/multiscale`` runs the 4-level image pyramid; ``--nms-fused``
 detects with kernel 5 (blur + FAST + NMS in one pass) where a level allows.
 ``--tracking pnp`` tracks each frame against a persistent landmark map
@@ -141,9 +142,11 @@ def main(argv: list[str] | None = None) -> int:
                              "state, stitched by Sim(3) over the overlaps (with --slam: cross-segment loops and "
                              "a global pose graph); the segments run in turn on the device")
     parser.add_argument("--stats", action="store_true", help="print run stats as JSON")
+    parser.add_argument("--debug", action="store_true", help="log at the DEBUG level")
     args = parser.parse_args(argv)
 
-    logging.basicConfig(level=logging.INFO, format="[%(asctime)s] [%(levelname)s] %(message)s")
+    logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO,
+                        format="[%(asctime)s] [%(levelname)s] %(message)s")
     log = logging.getLogger("tpuslam_torch")
 
     if args.timeshard:

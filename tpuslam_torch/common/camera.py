@@ -111,6 +111,19 @@ class Camera:
         )
 
 
+def undistort_image(
+    image: torch.Tensor, flat_idx: torch.Tensor, valid: torch.Tensor, *, normalize: bool = True
+) -> torch.Tensor:
+    """Undistort one (H, W) uint8 image: float32 in [0, 1] when ``normalize``
+    (the reference's output contract), else uint8.
+
+    The reference's ``/ 255`` compiles to a product with the float32
+    reciprocal, so the port multiplies by it too: the same bits.
+    """
+    out = undistort_batch(image[None], flat_idx, valid)[0]
+    return out.to(torch.float32) * (1.0 / 255.0) if normalize else out
+
+
 def undistort_batch(
     images: torch.Tensor, flat_idx: torch.Tensor, valid: torch.Tensor
 ) -> torch.Tensor:

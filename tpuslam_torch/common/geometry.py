@@ -79,6 +79,48 @@ def nullvec_jacobi(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
     return torch.take_along_dim(V, idx[..., None, None], dim=-1)[..., 0]
 
 
+def nullvec_minimal(A: torch.Tensor) -> torch.Tensor:
+    """Exact nullvector of a *minimal* system (m = n − 1 rows), batched.
+
+    Modified Gram-Schmidt orthonormalises the rows in order, then two fixed
+    probe vectors (sin(0.7 + 1.3i), cos(0.3 + 2.1i)) are orthogonalised
+    against the row space, twice; the one with the larger residual is the
+    nullvector (both lying in the row space is measure-zero).
+    """
+    m, n = A.shape[-2:]
+    if m >= n:
+        raise ValueError("nullvec_minimal needs an underdetermined system")
+    Q = A / torch.clamp_min(torch.linalg.vector_norm(A, dim=-1, keepdim=True), 1e-30)
+    arange_m = torch.arange(m, device=A.device)
+    for k in range(m):
+        qk = Q[..., k, :]
+        qk = qk / torch.clamp_min(torch.linalg.vector_norm(qk, dim=-1, keepdim=True), 1e-30)
+        proj = torch.einsum("...mn,...n->...m", Q, qk)
+        Q = torch.where((arange_m > k)[:, None], Q - proj[..., :, None] * qk[..., None, :], Q)
+        Q = torch.cat([Q[..., :k, :], qk[..., None, :], Q[..., k + 1 :, :]], dim=-2)
+    i = torch.arange(n, dtype=A.dtype, device=A.device)
+    residuals = []
+    for probe in (torch.sin(0.7 + 1.3 * i), torch.cos(0.3 + 2.1 * i)):
+        b = probe.expand(*A.shape[:-2], n)
+        r = b - torch.einsum("...m,...mn->...n", torch.einsum("...mn,...n->...m", Q, b), Q)
+        # a second pass for float32 orthogonality
+        residuals.append(r - torch.einsum("...m,...mn->...n", torch.einsum("...mn,...n->...m", Q, r), Q))
+    r1, r2 = residuals
+    n1 = torch.linalg.vector_norm(r1, dim=-1, keepdim=True)
+    n2 = torch.linalg.vector_norm(r2, dim=-1, keepdim=True)
+    v = torch.where(n1 >= n2, r1, r2)
+    return v / torch.clamp_min(torch.linalg.vector_norm(v, dim=-1, keepdim=True), 1e-30)
+
+
+def smallest_eigvec(ata: torch.Tensor) -> torch.Tensor:
+    """Unit eigenvector of the smallest eigenvalue of symmetric (..., n, n) matrices.
+
+    ``eigh`` sorts eigenvalues ascending, so it is column 0; its sign is the
+    decomposition's free choice.
+    """
+    return torch.linalg.eigh(ata)[1][..., :, 0]
+
+
 def _normalize_rows(a: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     norm = torch.linalg.vector_norm(a, dim=-1, keepdim=True)
     return a / torch.clamp_min(norm, eps)
@@ -116,6 +158,29 @@ def triangulate_homogeneous(
     return v / torch.clamp_min(torch.linalg.vector_norm(v, dim=-1, keepdim=True), 1e-30)
 
 
+def dehomogenize(points_h: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """(..., 4) homogeneous → (..., 3) Euclidean, guarding |w| < eps by ±eps."""
+    w = points_h[..., 3:4]
+    w_safe = torch.where(w.abs() < eps, torch.where(w < 0, -eps, eps), w)
+    return points_h[..., :3] / w_safe
+
+
+def triangulate_points(P1: torch.Tensor, P2: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor) -> torch.Tensor:
+    """Batched DLT triangulation → (..., N, 3) Euclidean points."""
+    return dehomogenize(triangulate_homogeneous(P1, P2, pts1, pts2))
+
+
+def project(
+    K: torch.Tensor, R: torch.Tensor, t: torch.Tensor, points3d: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Project (..., N, 3) world points by x = K (R X + t) → ((..., N, 2) pixels, (..., N) depths)."""
+    cam = points3d @ R.transpose(-1, -2) + t[..., None, :]
+    pix = cam @ K.transpose(-1, -2)
+    z = pix[..., 2:3]
+    z_safe = torch.where(z.abs() < 1e-12, 1e-12, z)
+    return pix[..., :2] / z_safe, cam[..., 2]
+
+
 def normalize_points(K: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Pixel → normalised camera coordinates: (u-cx)/fx, (v-cy)/fy."""
     fx = K[..., 0, 0]
@@ -125,6 +190,14 @@ def normalize_points(K: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     x = (pts[..., 0] - cx[..., None]) / fx[..., None]
     y = (pts[..., 1] - cy[..., None]) / fy[..., None]
     return torch.stack([x, y], dim=-1)
+
+
+def closest_rotation(M: torch.Tensor) -> torch.Tensor:
+    """Project (..., 3, 3) matrices onto SO(3) (Procrustes: U diag(1, 1, det UVᵀ) Vᵀ)."""
+    u, _, vt = torch.linalg.svd(M)
+    det = torch.linalg.det(u @ vt)
+    one = torch.ones_like(det)
+    return (u * torch.stack([one, one, det], dim=-1)[..., None, :]) @ vt
 
 
 def orthonormalize_rotation(R: torch.Tensor, iters: int = 3) -> torch.Tensor:
@@ -180,6 +253,20 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     )
     scale = torch.where(small, 0.5 + (1.0 - cos_theta) / 6.0, theta / (2.0 * sin_safe))
     return w * scale[..., None]
+
+
+def compose_se3(
+    R1: torch.Tensor, t1: torch.Tensor, R2: torch.Tensor, t2: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(R1, t1) ∘ (R2, t2): apply 2, then 1."""
+    return R1 @ R2, (R1 @ t2[..., None])[..., 0] + t1
+
+
+def pose_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Stack (..., 3, 3) and (..., 3) into (..., 4, 4) homogeneous transforms (bottom row [0 0 0 1])."""
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    bottom = torch.eye(4, dtype=top.dtype, device=top.device)[3:].expand(*top.shape[:-2], 1, 4)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def nullspace_basis(A: torch.Tensor) -> torch.Tensor:

@@ -71,6 +71,13 @@ def unpack_bits(descriptors: torch.Tensor) -> torch.Tensor:
     return bits.reshape(*descriptors.shape[:-1], descriptors.shape[-1] * 8).to(torch.float32)
 
 
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 8·B) {0, 1} (bool or integer) → (..., B) uint8, LSB-first (the inverse of :func:`unpack_bits`)."""
+    b = bits.reshape(*bits.shape[:-1], bits.shape[-1] // 8, 8).to(torch.uint8)
+    weights = (1 << torch.arange(8, device=bits.device)).to(torch.uint8)
+    return (b * weights).sum(dim=-1, dtype=torch.uint8)
+
+
 def hamming_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """(..., N1, N2) int32 Hamming distances between (..., N1, B) and (..., N2, B) uint8."""
     b1 = unpack_bits(d1)

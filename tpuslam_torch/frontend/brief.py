@@ -1,12 +1,18 @@
-"""Gaussian blur, patch orientation and quantised steered BRIEF.
+"""Gaussian blur, patch orientation and steered BRIEF, quantised and exact.
 
-Port of the quantised path of ``tpuslam/frontend/brief.py``.  The plain
-functions here are the twins of the hand-written kernels:
+Port of ``tpuslam/frontend/brief.py``.  The plain functions of the
+quantised path are the twins of the hand-written kernels:
 
   * :func:`gaussian_blur_u8` — the blur half of kernel 1 (``csrc/frontend.cu``);
   * :func:`extract_brief_patches_i8` — kernel 2 (``csrc/brief.cu``);
   * :func:`own_bin_dots_onehot` — kernel 3 (``csrc/brief.cu``), the one-hot
     formulation of :func:`compute_brief_descriptors_quantized`.
+
+The exact continuous-angle path (``BriefQuantizedBins: 0``) is plain
+torch on every device, as it is plain XLA in the reference package:
+:func:`compute_orientations` from full-image prefix-sum moment maps, then
+:func:`compute_brief_descriptors`.  Its functions take any leading batch
+dimensions on the image (..., H, W) and the keypoints (..., K).
 
 Host-side constants (pattern, ±1 bin weights, disc moment weights) are the
 reference package's numpy code, copied, so both packages build identical
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpuslam_torch.common.hamming import pack_bits
 from tpuslam_torch.frontend.fast import KeypointSet
 
 BLUR_KERNEL_SIZE = 5
@@ -320,10 +327,7 @@ def brief_bits_from_dots(
         (xk - radius >= 0) & (xk + radius < w) & (yk - radius >= 0) & (yk + radius < h)
         & kps.valid
     )
-    bits = bits & ok[..., None]
-    weights = (1 << torch.arange(8, device=own.device)).to(torch.uint8)
-    packed = bits.reshape(*bits.shape[:-1], num_pairs // 8, 8).to(torch.uint8) * weights
-    return packed.sum(dim=-1, dtype=torch.uint8)
+    return pack_bits(bits & ok[..., None])
 
 
 def compute_brief_descriptors_quantized(
@@ -345,3 +349,154 @@ def compute_brief_descriptors_quantized(
     return brief_bits_from_dots(
         own, bin_idx, kps, pattern, rotated, num_pairs, patch_size, (h, w)
     )
+
+
+def _border_ok(kps: KeypointSet, patch_size: int, image_shape: tuple[int, int]) -> torch.Tensor:
+    """Valid keypoints whose orientation disc (radius patch/2) lies inside the image."""
+    h, w = image_shape
+    radius = patch_size // 2
+    xi = kps.xy[..., 0].to(torch.int32)
+    yi = kps.xy[..., 1].to(torch.int32)
+    return (xi - radius >= 0) & (xi + radius < w) & (yi - radius >= 0) & (yi + radius < h) & kps.valid
+
+
+def _gather_pixels(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """image[..., y, x] for integer (..., N) coordinates, clipped to the image."""
+    h, w = image.shape[-2:]
+    idx = y.to(torch.int64).clamp(0, h - 1) * w + x.to(torch.int64).clamp(0, w - 1)
+    flat = image.reshape(*image.shape[:-2], h * w)
+    return torch.gather(flat, -1, idx.reshape(*flat.shape[:-1], -1)).reshape(idx.shape)
+
+
+def _windowed_sum(cum: torch.Tensor, h: int, dim: int) -> torch.Tensor:
+    """Sum of the ±h window at each position, from an exclusive prefix sum.
+
+    ``cum`` has length n+1 along ``dim`` (a leading zero); indices clamped
+    to [0, n] give the reference's edge-padded window (truncated at the
+    borders, where callers mask anyway).
+    """
+    n = cum.shape[dim] - 1
+    pos = torch.arange(n, device=cum.device)
+    hi = cum.index_select(dim, (pos + h + 1).clamp(max=n))
+    lo = cum.index_select(dim, (pos - h).clamp(min=0))
+    return hi - lo
+
+
+def orientation_moment_maps(image_f32: torch.Tensor, radius: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-image intensity-centroid moment maps (m01, m10) over the disc u² + v² ≤ r².
+
+    m10(y, x) = Σ_u u · Σ_{|v| ≤ h(u)} I(y+v, x+u), from prefix sums and
+    shifted adds.  Every partial sum is an integer below 2^24, so the float32
+    maps are exact in any order; border pixels are masked by the caller.
+    """
+    img = image_f32
+    *lead, h_img, w_img = img.shape
+    cum_v = F.pad(torch.cumsum(img, dim=-2), (0, 0, 1, 0))
+    cum_h = F.pad(torch.cumsum(img, dim=-1), (1, 0))
+    heights = {abs(u): int(np.floor(np.sqrt(radius * radius - u * u))) for u in range(-radius, radius + 1)}
+    vert = {h: F.pad(_windowed_sum(cum_v, h, -2), (radius, radius)) for h in set(heights.values())}
+    horiz = {h: F.pad(_windowed_sum(cum_h, h, -1), (0, 0, radius, radius)) for h in set(heights.values())}
+    m10 = torch.zeros_like(img)
+    m01 = torch.zeros_like(img)
+    for u in range(-radius, radius + 1):
+        if u:
+            m10 = m10 + u * vert[heights[abs(u)]][..., u + radius : u + radius + w_img]
+    for v in range(-radius, radius + 1):
+        if v:
+            m01 = m01 + v * horiz[heights[abs(v)]][..., v + radius : v + radius + h_img, :]
+    return m01, m10
+
+
+def compute_orientations(image_blurred: torch.Tensor, kps: KeypointSet, patch_size: int) -> torch.Tensor:
+    """Intensity-centroid angles (degrees) of every keypoint from the moment maps.
+
+    Keypoints whose disc is clipped by the border, and invalid ones, get 0.
+    """
+    m01_map, m10_map = orientation_moment_maps(image_blurred.to(torch.float32), patch_size // 2)
+    x, y = kps.xy[..., 0].to(torch.int32), kps.xy[..., 1].to(torch.int32)
+    m01 = _gather_pixels(m01_map, x, y)
+    m10 = _gather_pixels(m10_map, x, y)
+    angle = torch.atan2(m01, m10) * (180.0 / np.pi)
+    ok = _border_ok(kps, patch_size, image_blurred.shape[-2:])
+    return torch.where(ok, angle, 0.0).to(torch.float32)
+
+
+def extract_patches(
+    image: torch.Tensor, kps: KeypointSet, half: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(..., K, S, S) patches, S = 2·half + 1, around each keypoint, clamped inside the image.
+
+    Returns (patches, start_y, start_x); the clamped window still covers
+    every in-image point within ±half of its keypoint.
+    """
+    S = 2 * half + 1
+    h, w = image.shape[-2:]
+    sy = (kps.xy[..., 1].to(torch.int64) - half).clamp(0, h - S)
+    sx = (kps.xy[..., 0].to(torch.int64) - half).clamp(0, w - S)
+    r = torch.arange(S, device=image.device)
+    rows = (sy[..., None] + r)[..., :, None]  # (..., K, S, 1)
+    cols = (sx[..., None] + r)[..., None, :]  # (..., K, 1, S)
+    return _gather_pixels(image, cols.expand(rows.shape[:-1] + (S,)), rows.expand(rows.shape[:-1] + (S,))), sy, sx
+
+
+def compute_brief_descriptors(
+    image_blurred: torch.Tensor,
+    kps: KeypointSet,
+    angles_deg: torch.Tensor,
+    pattern: BriefPattern,
+    num_pairs: int,
+    patch_size: int,
+) -> torch.Tensor:
+    """Exact steered BRIEF of every keypoint: (..., K, num_pairs/8) uint8.
+
+    Each pattern pair is rotated by the keypoint's float32 angle and
+    truncated toward zero (C-style), ``I(p1) < I(p2)`` is tested, pairs that
+    leave the image are skipped *without advancing* the bit index (the
+    position is the running count of valid pairs; positions past the
+    descriptor are dropped), keypoints within patch/2 of the border get an
+    all-zero descriptor, and bits pack LSB-first.
+    """
+    h, w = image_blurred.shape[-2:]
+    theta = angles_deg * (np.pi / 180.0)
+    cos_t = torch.cos(theta)[..., None]  # (..., K, 1)
+    sin_t = torch.sin(theta)[..., None]
+    xi = kps.xy[..., 0].to(torch.int32)[..., None]
+    yi = kps.xy[..., 1].to(torch.int32)[..., None]
+
+    def rotate(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        p = p.to(torch.float32)
+        x = p[:, 0] * cos_t - p[:, 1] * sin_t  # (..., K, P)
+        y = p[:, 0] * sin_t + p[:, 1] * cos_t
+        return x.to(torch.int32) + xi, y.to(torch.int32) + yi
+
+    x1, y1 = rotate(pattern.p1)
+    x2, y2 = rotate(pattern.p2)
+    in_img = (
+        (x1 >= 0) & (x1 < w) & (y1 >= 0) & (y1 < h)
+        & (x2 >= 0) & (x2 < w) & (y2 >= 0) & (y2 < h)
+    )
+    valid_pair = in_img & pattern.pair_valid
+
+    half = rotation_patch_half(patch_size)
+    S = 2 * half + 1
+    if S <= min(h, w):  # lookups in each keypoint's own patch, as the reference does
+        patches, sy, sx = extract_patches(image_blurred, kps, half)
+        flat = patches.reshape(*patches.shape[:-2], S * S)
+
+        def lookup(xg: torch.Tensor, yg: torch.Tensor) -> torch.Tensor:
+            lx = (xg - sx[..., None]).clamp(0, S - 1)
+            ly = (yg - sy[..., None]).clamp(0, S - 1)
+            return torch.gather(flat, -1, ly * S + lx)
+
+        i1, i2 = lookup(x1, y1), lookup(x2, y2)
+    else:  # an image smaller than the rotation patch
+        i1, i2 = _gather_pixels(image_blurred, x1, y1), _gather_pixels(image_blurred, x2, y2)
+    bit_val = (i1 < i2) & valid_pair
+
+    # Skip without advancing: a valid pair's bit goes to the count of valid pairs before it.
+    pos = torch.cumsum(valid_pair.to(torch.int64), dim=-1) - 1
+    pos = torch.where(valid_pair & (pos < num_pairs), pos, num_pairs)  # column num_pairs is dropped
+    bits = torch.zeros((*bit_val.shape[:-1], num_pairs + 1), dtype=torch.uint8, device=bit_val.device)
+    bits = bits.scatter_reduce(-1, pos, bit_val.to(torch.uint8), "amax")[..., :num_pairs]
+    ok = _border_ok(kps, patch_size, (h, w))
+    return pack_bits(bits.bool() & ok[..., None])

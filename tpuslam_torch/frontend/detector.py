@@ -1,17 +1,19 @@
-"""FeatureDetector: FAST detect + quantised steered-BRIEF compute, batched.
+"""FeatureDetector: FAST detect + steered-BRIEF compute, batched and single-image.
 
 Port of ``tpuslam/frontend/detector.py`` (``FeatureDetector``,
 ``_level_batch``, ``_feasible_levels``, ``_pyramid_batch``,
-``_resize_batch_u8``, ``_compute_batch_fused``).  One level of one batch
-runs either kernel 1 (blur + FAST), packed-key NMS and the tile-pooled
-top-k, or — with ``nms_fused`` where the level's shape allows it — kernel 5
-(blur + FAST + NMS in one pass) and the top-k over its key plane; then
-kernel 2 (patch extraction), the int8 moment orientation, kernel 3 (own-bin
-BRIEF dots) and bit packing.  With ``NumLevels > 1`` every level is resized
-from level 0 and detected on; its keypoints map back to level-0 pixels.  On
-CPU tensors the kernels' plain twins run instead.
-
-Not ported yet: the exact continuous-angle BRIEF (``BriefQuantizedBins: 0``).
+``_resize_batch_u8``, ``_compute_batch_fused``, ``_compute_from_blurred``).
+One level of one batch runs either kernel 1 (blur + FAST), packed-key NMS
+and the tile-pooled top-k, or — with ``nms_fused`` where the level's shape
+allows it — kernel 5 (blur + FAST + NMS in one pass) and the top-k over its
+key plane.  With ``BriefQuantizedBins > 0`` kernel 2 (patch extraction),
+the int8 moment orientation, kernel 3 (own-bin BRIEF dots) and bit packing
+follow; with 0, the exact continuous-angle orientation and BRIEF, plain
+torch as in the reference (``frontend/brief.py``).  With ``NumLevels > 1``
+every level is resized from level 0 and detected on; its keypoints map back
+to level-0 pixels.  ``detect``, ``compute`` and ``detect_and_compute`` take
+one (H, W) image through the batch path at B = 1, as the reference does on
+its accelerator.  On CPU tensors the kernels' plain twins run instead.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from tpuslam_torch.frontend.brief import (
     bin_rotated_offsets,
     brief_bits_from_dots,
     build_brief_bin_weights,
+    compute_brief_descriptors,
+    compute_orientations,
     disc_moment_weights,
     gaussian_kernel,
     generate_brief_pattern_numpy,
@@ -58,23 +62,25 @@ def detector_arrays_numpy(config: DetectorConfig) -> dict[str, np.ndarray]:
 
     Keys follow the reference package's ``FeatureDetector`` attributes:
     the BRIEF pattern fields, ``blur_kernel`` (5, 5) float32,
-    ``bin_weights_3d`` (bins, S2p, P) int8 and ``moment_weights`` (S2p, 2) int8.
-    The pyramid adds none: its resize weights depend on the level shapes
-    alone (:func:`resize_weights_numpy`), so the same arrays serve every
-    ``NumLevels``.
+    ``bin_weights_3d`` (bins, S2p, P) int8 (only with ``BriefQuantizedBins
+    > 0``: the exact path has no bin weights) and ``moment_weights``
+    (S2p, 2) int8.  The pyramid adds none: its resize weights depend on the
+    level shapes alone (:func:`resize_weights_numpy`), so the same arrays
+    serve every ``NumLevels``.
     """
     pattern = generate_brief_pattern_numpy(
         config.num_brief_pairs, config.patch_size, seed=config.brief_seed
     )
-    bins = config.brief_quantized_bins
-    W, _ = build_brief_bin_weights(pattern, config.patch_size, bins)
-    s2p = W.shape[0]
-    return {
+    arrays = {
         **pattern,
         "blur_kernel": gaussian_kernel().astype(np.float32),
-        "bin_weights_3d": np.ascontiguousarray(W.reshape(s2p, bins, -1).transpose(1, 0, 2)),
         "moment_weights": disc_moment_weights(config.patch_size),
     }
+    bins = config.brief_quantized_bins
+    if bins > 0:
+        W, _ = build_brief_bin_weights(pattern, config.patch_size, bins)
+        arrays["bin_weights_3d"] = np.ascontiguousarray(W.reshape(W.shape[0], bins, -1).transpose(1, 0, 2))
+    return arrays
 
 
 class FeatureDetector:
@@ -95,10 +101,6 @@ class FeatureDetector:
     ):
         if not isinstance(config, DetectorConfig):
             config = DetectorConfig.from_yaml(config)
-        if config.brief_quantized_bins <= 0:
-            raise NotImplementedError(
-                "BriefQuantizedBins: 0 (exact continuous-angle BRIEF) is not ported yet"
-            )
         self.config = config
         self.device = torch.device(device)
         self.nms_fused = nms_fused
@@ -106,18 +108,52 @@ class FeatureDetector:
             from tpuslam_torch.utils.convert import detector_arrays_from_numpy
 
             arrays = detector_arrays_from_numpy(detector_arrays_numpy(config))
+        bins = config.brief_quantized_bins
+        required = [*BriefPattern._fields, "blur_kernel", "moment_weights"]
+        required += ["bin_weights_3d"] if bins > 0 else []
+        missing = [k for k in required if k not in arrays]
+        if missing:
+            raise KeyError(f"missing detector arrays for BriefQuantizedBins {bins}: {missing}")
         self.pattern = BriefPattern(
             *(arrays[f].to(self.device) for f in BriefPattern._fields)
         )
         # Kernels 1 and 5 read the taps on the host before each launch: keep them on the CPU.
         self.blur_kernel = arrays["blur_kernel"].to("cpu")
-        # Kernel 3's (bins, P, S2p) layout, built once here; the twin reads the (bins, S2p, P) view.
-        self.bin_weights = pack_bin_weights(arrays["bin_weights_3d"].to(self.device))
-        self.bin_weights_3d = self.bin_weights.as_3d()
         self.moment_weights = arrays["moment_weights"].to(self.device)
-        self.rotated_offsets = bin_rotated_offsets(
-            self.pattern.p1, self.pattern.p2, config.brief_quantized_bins
-        ).to(self.device)
+        # The exact path (bins 0) has no bin weights, as in the reference.
+        self.bin_weights = self.bin_weights_3d = self.rotated_offsets = None
+        if bins > 0:
+            # Kernel 3's (bins, P, S2p) layout, built once here; the twin reads the (bins, S2p, P) view.
+            self.bin_weights = pack_bin_weights(arrays["bin_weights_3d"].to(self.device))
+            self.bin_weights_3d = self.bin_weights.as_3d()
+            self.rotated_offsets = bin_rotated_offsets(
+                self.pattern.p1, self.pattern.p2, bins
+            ).to(self.device)
+
+    # --- single image (the reference's detect / compute / detect_and_compute) ---------------------
+    def detect(self, image: torch.Tensor) -> KeypointSet:
+        """FAST + NMS on one (H, W) uint8 image → a (K,) KeypointSet, single-scale."""
+        _, kps = self._detect_level(image.to(self.device)[None], self.config.max_keypoints)
+        return _row0(kps)
+
+    def compute(self, image: torch.Tensor, kps: KeypointSet) -> tuple[KeypointSet, torch.Tensor]:
+        """Blur (kernel 1's) + orientation + BRIEF of one (H, W) image's (K,) keypoints.
+
+        Returns (keypoints with angles, (K, NumBRIEFPairs/8) uint8
+        descriptors); rows of invalid keypoints are all zero.
+        """
+        c = self.config
+        blur, _, _ = fused_frontend_batch(
+            image.to(self.device)[None], threshold=c.intensity_threshold,
+            contiguous=c.contiguous_pixels_threshold, taps=self.blur_kernel,
+        )
+        kps, desc = self.compute_from_blurred(blur, KeypointSet(*(f.to(self.device)[None] for f in kps)))
+        return _row0(kps), desc[0]
+
+    def detect_and_compute(self, image: torch.Tensor) -> tuple[KeypointSet, torch.Tensor]:
+        """Row 0 of :meth:`detect_and_compute_batch` on the one (H, W) image."""
+        kps, desc = self.detect_and_compute_batch(image[None])
+        return _row0(kps), desc[0]
 
     def detect_and_compute_batch(self, images: torch.Tensor) -> tuple[KeypointSet, torch.Tensor]:
         """(B, H, W) uint8 frames → (KeypointSet (B, K), descriptors (B, K, D) uint8).
@@ -145,22 +181,24 @@ class FeatureDetector:
             and tile_pool_exact(h, w, window, max_keypoints)
         )
 
-    def _level_batch(
-        self, images: torch.Tensor, max_keypoints: int
-    ) -> tuple[KeypointSet, torch.Tensor]:
-        """Single-scale batched detect + compute with an explicit capacity."""
+    def _detect_level(self, images: torch.Tensor, max_keypoints: int) -> tuple[torch.Tensor, KeypointSet]:
+        """Blur + keypoints of (B, H, W) images with an explicit capacity (kernel 5 or kernel 1)."""
         c = self.config
         args = dict(threshold=c.intensity_threshold, contiguous=c.contiguous_pixels_threshold,
                     taps=self.blur_kernel)
         window = c.suppression_window_size
         if self._fused_nms_ok(*images.shape[-2:], max_keypoints):
             blur, key = fused_frontend_nms_batch(images, window=window, **args)
-            kps = select_from_key(key, window=window, max_keypoints=max_keypoints)
-        else:
-            blur, corner, score = fused_frontend_batch(images, **args)
-            kps = select_keypoints(corner, score, nms=c.non_max_suppression,
-                                   window=window, max_keypoints=max_keypoints)
-        return self.compute_from_blurred(blur, kps)
+            return blur, select_from_key(key, window=window, max_keypoints=max_keypoints)
+        blur, corner, score = fused_frontend_batch(images, **args)
+        return blur, select_keypoints(corner, score, nms=c.non_max_suppression,
+                                      window=window, max_keypoints=max_keypoints)
+
+    def _level_batch(
+        self, images: torch.Tensor, max_keypoints: int
+    ) -> tuple[KeypointSet, torch.Tensor]:
+        """Single-scale batched detect + compute with an explicit capacity."""
+        return self.compute_from_blurred(*self._detect_level(images, max_keypoints))
 
     def _feasible_levels(self, h: int, w: int) -> list[tuple[int, int, int]]:
         """(level, h_l, w_l) for every level large enough to detect on."""
@@ -203,8 +241,17 @@ class FeatureDetector:
     def compute_from_blurred(
         self, blurred: torch.Tensor, kps: KeypointSet
     ) -> tuple[KeypointSet, torch.Tensor]:
-        """Orientation + quantised BRIEF sharing one patch extraction."""
+        """Orientation + BRIEF of (B, K) keypoints on (B, H, W) blurred images.
+
+        Quantised (bins > 0): kernel 2's patches serve the int8 moment
+        orientation and kernel 3.  Exact (bins 0): the moment maps and the
+        continuous-angle BRIEF, plain torch (no kernel in the reference either).
+        """
         c = self.config
+        if c.brief_quantized_bins <= 0:
+            angles = compute_orientations(blurred, kps, c.patch_size)
+            desc = compute_brief_descriptors(blurred, kps, angles, self.pattern, c.num_brief_pairs, c.patch_size)
+            return kps._replace(angle=angles), desc
         h, w = blurred.shape[-2:]
         patches = extract_brief_patches(blurred, kps.xy, c.patch_size)
         angles = orientations_from_patches(
@@ -217,6 +264,10 @@ class FeatureDetector:
             c.num_brief_pairs, c.patch_size, (h, w),
         )
         return kps._replace(angle=angles), desc
+
+
+def _row0(kps: KeypointSet) -> KeypointSet:
+    return KeypointSet(*(f[0] for f in kps))
 
 
 def resize_weights_numpy(n_in: int, n_out: int) -> np.ndarray:

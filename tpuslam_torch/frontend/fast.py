@@ -37,6 +37,31 @@ class KeypointSet(NamedTuple):
     angle: torch.Tensor  # (..., K) float32 — orientation in degrees
     valid: torch.Tensor  # (..., K) bool
 
+    @property
+    def capacity(self) -> int:
+        return self.xy.shape[-2]
+
+    def count(self) -> torch.Tensor:
+        return self.valid.sum(dim=-1, dtype=torch.int32)
+
+
+def _mask_run(mask: torch.Tensor, run: int) -> torch.Tensor:
+    """AND of ``run`` consecutive circle entries (dim 0, wrapping) starting at each position.
+
+    The reference's segment test; :func:`fast_response_and_mask` computes
+    the same segments with run counters (kernel 1's formulation), and the
+    tests hold the two against each other.
+    """
+    acc = mask
+    length = 1
+    while length * 2 <= run:
+        acc = acc & torch.roll(acc, -length, dims=0)
+        length *= 2
+    while length < run:
+        acc = acc & torch.roll(mask, -length, dims=0)
+        length += 1
+    return acc
+
 
 def fast_response_and_mask(
     images: torch.Tensor, threshold: int, contiguous: int
@@ -196,6 +221,31 @@ def select_from_key(key: torch.Tensor, *, window: int, max_keypoints: int) -> Ke
     top_keys = torch.sort(pooled, dim=-1, descending=True, stable=True).values[:, :max_keypoints]
     top_idx = n - 1 - (top_keys & ((1 << _IDX_BITS) - 1))
     return _keypoints_from_top(top_keys, top_idx, key.shape[-1])
+
+
+def detect_keypoints(
+    image: torch.Tensor,
+    *,
+    threshold: int,
+    contiguous: int,
+    nms: bool = True,
+    window: int = 12,
+    max_keypoints: int = 1024,
+) -> KeypointSet:
+    """FAST on one (H, W) uint8 image → a (K,) score-sorted KeypointSet.
+
+    Corners and scores come from kernel 1 at B = 1 (its plain twin on a CPU
+    tensor); its blur is not used.
+    """
+    from tpuslam_torch.frontend.brief import gaussian_kernel
+    from tpuslam_torch.kernels.frontend import fused_frontend_batch
+
+    taps = torch.from_numpy(gaussian_kernel().astype("float32"))
+    _, corner, score = fused_frontend_batch(
+        image[None].contiguous(), threshold=threshold, contiguous=contiguous, taps=taps
+    )
+    kps = select_keypoints(corner, score, nms=nms, window=window, max_keypoints=max_keypoints)
+    return KeypointSet(*(f[0] for f in kps))
 
 
 def _keypoints_from_top(top_keys: torch.Tensor, top_idx: torch.Tensor, w: int) -> KeypointSet:

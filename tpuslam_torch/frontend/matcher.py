@@ -1,7 +1,8 @@
 """Brute-force descriptor matching with spatial-jump penalty and ratio test.
 
-Port of ``tpuslam/frontend/matcher.py::match_descriptors`` and
-``penalized_distance_matrix``, batched over frame pairs.  Same layout as
+Port of ``tpuslam/frontend/matcher.py`` (``match_descriptors``,
+``penalized_distance_matrix`` and the ``FeatureMatcher`` facade), batched
+over frame pairs.  Same layout as
 the reference package: int16 distances (the largest penalised distance,
 256·(1 + diag/500), stays far below 32767), the second best from an
 equality-masked min, and the pixel distance d² from the norm expansion,
@@ -10,11 +11,14 @@ whose cross term is a float32 matmul with TF32 off.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from tpuslam_torch.common.hamming import hamming_matrix
+from tpuslam_torch.config.schema import MatcherConfig
+from tpuslam_torch.frontend.fast import KeypointSet
 
 _SENT16 = 32767  # int16 sentinel: larger than any real (penalised) distance
 
@@ -26,6 +30,9 @@ class MatchSet(NamedTuple):
     train_idx: torch.Tensor  # int64
     distance: torch.Tensor  # float32 (penalised int distance)
     valid: torch.Tensor  # bool
+
+    def count(self) -> torch.Tensor:
+        return self.valid.sum(dim=-1, dtype=torch.int32)
 
 
 def penalized_distance_matrix(
@@ -104,3 +111,44 @@ def match_descriptors(
         distance=torch.where(sel_valid, torch.gather(distance, -1, order), inf),
         valid=sel_valid,
     )
+
+
+class FeatureMatcher:
+    """Config-bound facade mirroring the reference's ``FeatureMatcher``."""
+
+    def __init__(self, config: MatcherConfig | str | Path):
+        if not isinstance(config, MatcherConfig):
+            config = MatcherConfig.from_yaml(config)
+        if config.distance_type != "HAMMING":
+            # the reference's uint8 API refuses L2 too
+            raise ValueError("L2 distance requires float descriptors. Use the float overload.")
+        self.config = config
+
+    def match(
+        self,
+        desc1: torch.Tensor,
+        desc2: torch.Tensor,
+        kps1: KeypointSet | None = None,
+        kps2: KeypointSet | None = None,
+        valid1: torch.Tensor | None = None,
+        valid2: torch.Tensor | None = None,
+    ) -> MatchSet:
+        """Match (..., N1, D) against (..., N2, D); the spatial penalty only when both keypoint sets are given."""
+        c = self.config
+
+        def mask(valid, kps, desc):
+            if valid is not None:
+                return valid
+            if kps is not None:
+                return kps.valid
+            return torch.ones(desc.shape[:-1], dtype=torch.bool, device=desc.device)
+
+        xy1 = kps1.xy if kps1 is not None else None
+        xy2 = kps2.xy if kps2 is not None else None
+        return match_descriptors(
+            desc1, desc2, mask(valid1, kps1, desc1), mask(valid2, kps2, desc2), xy1, xy2,
+            ratio_threshold=c.ratio_test_threshold, max_jump_radius=c.max_jump_radius,
+            use_ratio_test=c.use_ratio_test, filter_matches=c.filter_matches,
+            good_matches_count=c.good_matches_count,
+            use_spatial_penalty=xy1 is not None and xy2 is not None,
+        )

@@ -33,7 +33,9 @@ from tpuslam_torch.common.geometry import (
     nullvec_jacobi,
     orthonormalize_rotation,
     triangulate_homogeneous,
+    triangulate_points,
 )
+from tpuslam_torch.config.schema import PoseConfig
 from tpuslam_torch.kernels.pose import build_msac_operand, msac_scores
 
 
@@ -118,6 +120,12 @@ def decompose_essential(E: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, to
     t = u[..., :, 2]
     t = t / torch.clamp_min(torch.linalg.vector_norm(t, dim=-1, keepdim=True), 1e-12)
     return R1, R2, t
+
+
+def _candidate_poses(E: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The four [R|±t] candidates of (..., 3, 3) essential matrices: (..., 4, 3, 3), (..., 4, 3)."""
+    R1, R2, t = decompose_essential(E)
+    return torch.stack([R1, R2, R1, R2], dim=-3), torch.stack([t, t, -t, -t], dim=-2)
 
 
 def cheirality_votes(
@@ -245,9 +253,7 @@ def estimate_relative_pose(
     inliers = (sampson_error_sq(E_best[:, None], x1, x2)[:, 0] < thr) & valid
 
     # --- [R|t] by cheirality vote on (up to) 256 inliers.
-    R1, R2, t = decompose_essential(E_best)
-    Rs = torch.stack([R1, R2, R1, R2], dim=1)  # (B, 4, 3, 3)
-    ts = torch.stack([t, t, -t, -t], dim=1)
+    Rs, ts = _candidate_poses(E_best)  # (B, 4, 3, 3), (B, 4, 3)
     vote_n = min(256, M)
     if vote_n < M:
         vote_idx = torch.sort(inliers.to(torch.int32), dim=-1, descending=True, stable=True).indices
@@ -291,7 +297,48 @@ def triangulate_matched_points(
         dim=1,
     )
     P2 = torch.cat([R.to(dtype), t.to(dtype)[..., :, None]], dim=-1)  # (B, 3, 4)
-    Xh = triangulate_homogeneous(P1, P2, x1, x2)
-    w = Xh[..., 3:4]
-    w_safe = torch.where(w.abs() < 1e-12, torch.where(w < 0, -1e-12, 1e-12), w)
-    return Xh[..., :3] / w_safe
+    return triangulate_points(P1, P2, x1, x2)
+
+
+class PoseEstimator:
+    """Config-bound single-pair facade mirroring the reference's ``PoseEstimator``, on ``device``
+    (the card by default)."""
+
+    def __init__(self, camera, config: PoseConfig | None = None, device: torch.device | str = "cuda"):
+        self.camera = camera
+        self.config = config or PoseConfig()
+        self.device = torch.device(device)
+        self.K = torch.as_tensor(camera.K, dtype=torch.float32).to(self.device)
+
+    def estimate(
+        self,
+        pts1: torch.Tensor,
+        pts2: torch.Tensor,
+        valid: torch.Tensor,
+        generator: torch.Generator | None = None,
+        draws: torch.Tensor | None = None,
+    ) -> PoseResult:
+        """Relative pose of one pair: (M, 2) pixel points and their (M,) mask → unbatched PoseResult.
+
+        The samples are ``draws`` ((H, S) ranks among the valid matches, for
+        example the reference's ``randint``) if given, else drawn from
+        ``generator``, by default a ``torch.Generator`` seeded with the
+        config's seed (the reference's ``PRNGKey(seed)``).
+        """
+        c = self.config
+        if draws is None and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(c.seed)
+        res = estimate_relative_pose(
+            pts1.to(self.device)[None], pts2.to(self.device)[None], valid.to(self.device)[None], self.K,
+            generator, draws=None if draws is None else draws[None],
+            num_hypotheses=c.num_hypotheses, sample_size=c.sample_size,
+            inlier_threshold_px=c.inlier_threshold_px, min_matches=c.min_matches,
+        )
+        return PoseResult(*(f[0] for f in res))
+
+    def triangulate_points(self, R: torch.Tensor, t: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor):
+        """(M, 3) points of one pair's (M, 2) matches against P1 = K[I|0], P2 = K[R|t]."""
+        dev = self.device
+        return triangulate_matched_points(
+            self.K, R.to(dev)[None], t.to(dev)[None], pts1.to(dev)[None], pts2.to(dev)[None]
+        )[0]

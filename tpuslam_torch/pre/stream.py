@@ -153,6 +153,11 @@ class FrameStream:
         """Decode frame ``index`` → (gray uint8 (H, W), timestamp seconds)."""
         return decode_png_gray8(self._files[index]), self._timestamps[index]
 
+    def __iter__(self) -> Iterator[tuple[np.ndarray, float]]:
+        """(frame, timestamp) of every ``1 + frame_skip``-th frame, decoded one at a time."""
+        for i in self.frame_indices():
+            yield self.read_frame(i)
+
     def frame_indices(self) -> list[int]:
         return list(range(0, self.total_frames, 1 + self.frame_skip))
 

@@ -8,7 +8,8 @@ functions take those arrays as numpy (for example read off a
 port's tensors, with the port's dtypes: indices become int64.
 
 Detector keys: ``p1``, ``p2``, ``pair_valid``, ``slot_to_pair``,
-``slot_used``, ``blur_kernel``, ``bin_weights_3d``, ``moment_weights``.
+``slot_used``, ``blur_kernel``, ``bin_weights_3d`` (absent with
+``BriefQuantizedBins: 0``, the exact path), ``moment_weights``.
 Pipeline keys: those, plus ``K``, ``undistort_idx`` and ``undistort_valid``.
 The image pyramid (``NumLevels > 1``, ``configs/multiscale``) adds no
 arrays: its resize weights are a function of the level shapes alone, so
@@ -63,12 +64,10 @@ _PIPELINE_DTYPES = {
 
 
 def _convert(arrays: dict, dtypes: dict) -> dict[str, torch.Tensor]:
-    missing = sorted(set(dtypes) - set(arrays))
-    if missing:
-        raise KeyError(f"missing arrays: {missing}")
+    """The known keys that ``arrays`` holds (not None), as tensors; the consumer checks what it needs."""
     return {
         k: torch.from_numpy(np.array(arrays[k])).to(dt)  # a private, writable copy
-        for k, dt in dtypes.items()
+        for k, dt in dtypes.items() if arrays.get(k) is not None
     }
 
 
