@@ -159,6 +159,29 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
 16. cli-timeshard — ``python -m tpuslam_torch.cli -c configs -v
    tests/data/images --timeshard 2 --slam --batch-size 4 --stats``
    (through ``frames_to_memmap``): exit 0, 10 trajectory rows.
+17. loader — the port's frame loader (``pre/native_loader.py``, built with
+   ``c++`` here): on the fixture directories (the four of the reference,
+   and ``tests/data/torch_loader``'s filters, formats and interlaced) the
+   native loader and the plain decoder give identical bytes; a JPEG
+   directory opens where this machine has libjpeg and raises a named error
+   where it has none; 96 frames written as adaptive-filter PNGs
+   (``encode_png``: Sub, Average and Paeth rows) decode to their source:
+   the native loader's ms a frame with its thread count, the plain
+   decoder's on 4 of them and on the committed frames, ``FrameStream.batches``
+   ms a chunk; the CLI's ``--slam`` over that directory (in this process,
+   kernels 1-3 six launches each) and ``SlamSystem.run`` over the same
+   frames in memory, a warm-up of each, then in turns: frames/s of both;
+18. soak — ``tpuslam_torch/tools/soak.py``'s run: 1,536 frames (the ring of
+   512 keyframes overflows three times), VO, the tree vocabulary, the
+   redundancy policy: kernels 1-3 96 launches each, kernel 4 at least that,
+   kernel 5 none; its pass rule (finite, ``pose_ok`` > 95%, >= 1 revisit
+   loop into the prologue) and memory allocated flat from the ring's first
+   overflow to the last chunk (within 16 MiB); the report, the memory after
+   each chunk summarised;
+19. profile — ``tools/profile_stages.py`` on one main-path chunk and one
+   pyramid chunk (kernel 5) and ``tools/profile_slam.py`` (full SLAM in VO
+   and PnP mode, localization against the PnP run's map) over the 96
+   frames: their stage tables.
 Each phase from 7 on prints its seconds.
 
 The last three lines of standard output are the kernels' JSON record, the
@@ -167,6 +190,8 @@ card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -256,6 +281,77 @@ def load_frames(n_frames: int) -> np.ndarray:
     period = 2 * (len(base) - 1)
     idx = [min(i % period, period - i % period) for i in range(n_frames)]
     return np.stack([base[i] for i in idx])
+
+
+# --- a small PNG encoder (numpy + zlib): the adaptive-filter frames of [loader] and the loader tests' files ---
+PNG_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def _png_rows(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(h, w, c) samples → (h, row bytes) packed rows: big-endian 16-bit, or bits most significant first."""
+    h, w, c = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, w * c * 2)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, w * c)
+    bits = (samples.reshape(h, w * c, 1).astype(np.uint8) >> np.arange(depth - 1, -1, -1, dtype=np.uint8)) & 1
+    return np.packbits(bits.reshape(h, -1), axis=1)
+
+
+def _png_filter(rows: np.ndarray, bpp: int, filters) -> bytes:
+    """Filter every row: each row's type from ``filters`` (an int a row), or, for "adaptive", libpng's
+    heuristic (the type whose bytes, read as signed, have the least absolute sum)."""
+    x = rows.astype(np.int16)
+    b = np.vstack([np.zeros_like(x[:1]), x[:-1]])
+    a = np.hstack([np.zeros_like(x[:, :bpp]), x[:, :-bpp]])
+    c = np.hstack([np.zeros_like(b[:, :bpp]), b[:, :-bpp]])
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    out = np.stack([x, x - a, x - b, x - (a + b) // 2, x - paeth]).astype(np.uint8)  # (5, h, n)
+    if isinstance(filters, str):
+        cost = np.abs(out.view(np.int8).astype(np.int32)).sum(axis=2)
+        filters = np.argmin(cost, axis=0)
+    filters = np.asarray(filters)
+    chosen = out[filters, np.arange(len(filters))]
+    return np.hstack([filters[:, None].astype(np.uint8), chosen]).tobytes()
+
+
+def encode_png(samples: np.ndarray, colour: int = 0, depth: int = 8, filters="adaptive", interlace: bool = False,
+               palette: np.ndarray | None = None, trns: bytes | None = None, level: int = 6) -> bytes:
+    """A PNG file of ``samples`` ((h, w) or (h, w, channels) at ``depth`` bits) of colour type ``colour``.
+
+    ``filters``: "adaptive" or a row filter type for each row (of each
+    Adam7 pass in turn when ``interlace``: then the pattern repeats).
+    """
+    import struct
+    import zlib
+
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w, ch = samples.shape
+    bpp = max(1, depth * ch // 8)
+    parts = [samples] if not interlace else [samples[y0::dy, x0::dx] for x0, y0, dx, dy in PNG_ADAM7]
+    raw = b""
+    for part in parts:
+        if part.size == 0:
+            continue
+        f = filters if isinstance(filters, str) else np.resize(np.asarray(filters), part.shape[0])
+        raw += _png_filter(_png_rows(part, depth), bpp, f)
+    out = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0,
+                                                                   int(interlace)))
+    if palette is not None:
+        out += _png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += _png_chunk(b"tRNS", trns)
+    return out + _png_chunk(b"IDAT", zlib.compress(raw, level)) + _png_chunk(b"IEND", b"")
 
 
 def check_record(name, got, want, ms, plain_ms, exact, work) -> dict:
@@ -2112,6 +2208,188 @@ def phase_cli_timeshard(card: str) -> dict:
     return {"stats": stats, "seconds": secs}
 
 
+LOADER_DIRS = ("images", "images_test_loop", "images_test_loop2", "test_images", "torch_loader/filters",
+               "torch_loader/formats", "torch_loader/interlaced")
+
+
+def write_adaptive_frames(frames_np: np.ndarray, directory: Path) -> None:
+    """Each frame as a PNG with libpng's adaptive row filters (``encode_png``): Sub, Average, Paeth rows.
+
+    The frames repeat the 10 fixtures, so each distinct frame is encoded once and its bytes copied.
+    """
+    encoded: dict[bytes, bytes] = {}
+    for i, f in enumerate(frames_np):
+        key = f.tobytes()
+        if key not in encoded:
+            encoded[key] = encode_png(f)
+        (directory / f"{i:06d}.png").write_bytes(encoded[key])
+
+
+def phase_loader(camera, config_dir: Path, frames_np: np.ndarray, card: str) -> dict:
+    """The port's frame loader: native == plain decoder on every fixture directory; decode rates; the CLI's
+    ``--slam`` over a directory of adaptive-filter PNGs beside ``SlamSystem.run`` over the frames in memory."""
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.model.system import SlamSystem
+    from tpuslam_torch.pre import native_loader
+    from tpuslam_torch.pre.stream import FrameStream, decode_png_gray8
+
+    label = "loader"
+    data = REPO / "tests" / "data"
+    t0 = time.perf_counter()
+    native_loader.library()
+    build_s = time.perf_counter() - t0
+    for name in LOADER_DIRS:
+        loader = native_loader.NativeFrameLoader(data / name)
+        got = loader.decode_batch(0, loader.n_frames)
+        for frame, path in zip(got, loader.files):
+            if not np.array_equal(frame, decode_png_gray8(path)):
+                raise AssertionError(f"[{label}] {path}: the native loader and the plain decoder differ")
+        loader.close()
+    jpeg_dir = data / "torch_loader" / "jpeg"
+    if native_loader.has_jpeg():
+        jpeg = f"JPEG decoded ({native_loader.NativeFrameLoader(jpeg_dir).decode_batch(0, 2).shape})"
+    else:
+        try:
+            native_loader.NativeFrameLoader(jpeg_dir)
+        except native_loader.FrameDecodeError as exc:
+            jpeg = f"no libjpeg on this machine: a JPEG directory raises at open ({exc})"
+        else:
+            raise AssertionError(f"[{label}] a JPEG directory opened without libjpeg")
+    log(f"[{label}] loader built in {build_s:.1f} s; native == plain decoder on {len(LOADER_DIRS)} directories "
+        f"({', '.join(LOADER_DIRS)}); {jpeg}")
+
+    cfg = SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH)
+    vocab = config_dir / "vocabulary_tree.npz"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_png_") as tmp:
+        tmp = Path(tmp)
+        write_adaptive_frames(frames_np, tmp)
+        loader = native_loader.NativeFrameLoader(tmp)
+        decoded = loader.decode_indices(range(len(frames_np)))  # warm: the files in the page cache
+        if not np.array_equal(decoded, frames_np):
+            raise AssertionError(f"[{label}] the adaptive-filter frames do not decode to their source")
+        t0 = time.perf_counter()
+        loader.decode_indices(range(len(frames_np)))
+        native_ms = 1e3 * (time.perf_counter() - t0) / len(frames_np)
+        plain = [loader.files[i] for i in (0, 5, 9, 14)]
+        t0 = time.perf_counter()
+        for p in plain:
+            decode_png_gray8(p)
+        plain_ms = 1e3 * (time.perf_counter() - t0) / len(plain)
+        t0 = time.perf_counter()
+        for p in plain:
+            decode_png_gray8(REPO / "tests" / "data" / "images" / f"{int(p.stem) % 10:010d}.png")
+        committed_ms = 1e3 * (time.perf_counter() - t0) / len(plain)
+        threads = loader.threads
+        loader.close()
+        stream = FrameStream(tmp)
+        t0 = time.perf_counter()
+        n_chunks = sum(1 for _ in stream.batches(BATCH))
+        batches_ms = 1e3 * (time.perf_counter() - t0) / n_chunks
+        stream.close()
+        log(f"[{label}] {len(frames_np)} adaptive-filter frames: native {native_ms:.3f} ms a frame on {threads} "
+            f"threads ({native_ms * threads:.3f} ms a frame a thread), FrameStream.batches {batches_ms:.2f} ms a "
+            f"{BATCH}-frame chunk; plain decoder {plain_ms:.1f} ms a frame (the committed Sub-filtered frames: "
+            f"{committed_ms:.1f}) on {card}")
+
+        # the CLI in this process, so that both sides are warm: its --stats time covers its run()
+        # over FrameStream.batches (the loader's pool decoding ahead) through device_prefetch
+        from tpuslam_torch.cli import main as cli_main
+
+        argv = ["-c", str(config_dir), "-v", str(tmp), "--slam", "--batch-size", str(BATCH), "--stats",
+                "-o", str(tmp / "traj.txt")]
+        system = SlamSystem(camera, cfg, vocabulary=vocab, tracking="vo", device="cuda")
+        cli_fps, run_fps = [], []
+        for turn in ("cli", "run", "cli", "run", "run", "cli"):  # a warm-up of each, then in turns
+            if turn == "run":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = system.run(host_batches(frames_np), seed=0)
+                torch.cuda.synchronize()
+                run_fps.append(len(frames_np) / (time.perf_counter() - t0))
+                continue
+            printed = io.StringIO()
+            reset_launch_counts()
+            with contextlib.redirect_stdout(printed):
+                rc = cli_main(argv)
+            cli_launches = launch_counts()
+            stats = json.loads(printed.getvalue().strip().splitlines()[-1])
+            rows = np.loadtxt(tmp / "traj.txt")
+            if rc or stats["frames"] != len(frames_np) or rows.shape != (len(frames_np), 12) \
+                    or not np.isfinite(rows).all():
+                raise AssertionError(f"[{label}] CLI exit {rc}, stats {stats}, trajectory {rows.shape}")
+            cli_fps.append(stats["fps"])
+        if float(out["pose_ok"][1:].mean()) < 0.9:
+            raise AssertionError(f"[{label}] run: pose_ok {float(out['pose_ok'][1:].mean()):.3f}")
+    n_chunks = len(frames_np) // BATCH
+    check_launches(f"{label} cli", cli_launches, {"fused_frontend_batch": n_chunks, "extract_brief_patches": n_chunks,
+                                                  "brief_own_bin_dots": n_chunks, "msac_scores": None,
+                                                  "fused_frontend_nms_batch": 0})
+    cli_fps, run_fps = cli_fps[1:], run_fps[1:]
+    ratio = float(np.mean(cli_fps) / np.mean(run_fps))
+    log(f"[{label}] --slam over the directory {[round(x, 2) for x in cli_fps]} frames/s (the CLI's --stats, "
+        f"in this process) beside SlamSystem.run over the frames in memory {[round(x, 2) for x in run_fps]} "
+        f"(after a warm-up of each, in turns: cli, run, run, cli): {ratio:.3f}x on {card}")
+    return {"build_s": build_s, "native_ms_per_frame": native_ms, "threads": threads,
+            "native_ms_per_frame_thread": native_ms * threads, "batches_ms_per_chunk": batches_ms,
+            "plain_ms_per_frame": plain_ms, "plain_ms_per_frame_committed": committed_ms,
+            "cli_fps": cli_fps, "run_fps": run_fps, "cli_over_run": ratio, "jpeg": jpeg, "cli_launches": cli_launches}
+
+
+def phase_soak(card: str) -> dict:
+    """``tools/soak.py``'s run: 1,536 frames, VO, the tree vocabulary, redundancy eviction."""
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.tools import soak
+
+    label = "soak"
+    frames, filler_end = soak.build_sequence(1536)
+    system = soak.soak_system("redundancy", "vo", "configs/vocabulary_tree.npz", "cuda")
+    reset_launch_counts()
+    report, _ = soak.run_soak(system, frames, filler_end)
+    counts = launch_counts()
+    n_chunks = len(frames) // BATCH
+    check_launches(label, counts, {"fused_frontend_batch": n_chunks, "extract_brief_patches": n_chunks,
+                                   "brief_own_bin_dots": n_chunks, "msac_scores": None, "fused_frontend_nms_batch": 0})
+    if counts["msac_scores"] < n_chunks:  # one a chunk, and one more a chunk where a lost frame relocalizes
+        raise AssertionError(f"[{label}] kernel 4 launched {counts['msac_scores']} times in {n_chunks} chunks")
+    mem = report["memory_allocated_by_chunk"]
+    shown = {k: v for k, v in report.items() if k != "memory_allocated_by_chunk"}
+    steps = np.diff(mem)
+    log(f"[{label}] {json.dumps(shown)} on {card}")
+    log(f"[{label}] memory allocated after chunks 0, 1, {report['memory_settled_chunk']} (the ring's first "
+        f"overflow) and the last: {mem[0]}, {mem[1]}, {mem[report['memory_settled_chunk']]}, {mem[-1]} bytes; "
+        f"largest step {int(steps.max())} after chunk {int(steps.argmax())}, "
+        f"{int((steps > 0).sum())} of {len(steps)} steps up")
+    if not report["ok"]:
+        raise AssertionError(f"[{label}] the soak failed its rule: {report}")
+    report["launches"] = counts
+    return report
+
+
+def phase_profile(camera, config_dir: Path, frames_np: np.ndarray, card: str) -> dict:
+    """``tools/profile_stages.py`` on the main path and the pyramid, and ``tools/profile_slam.py`` (VO,
+    PnP and localization against the PnP run's map, the tree vocabulary) over the 96 frames."""
+    from tpuslam_torch.common.camera import Camera
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.model.slam import SlamPipeline
+    from tpuslam_torch.tools import profile_slam, profile_stages
+
+    label = "profile"
+    chunk = torch.from_numpy(frames_np[:BATCH])
+    out = {}
+    for name, cfg_dir, fused in (("main", config_dir, False), ("pyramid", config_dir / "multiscale", True)):
+        pipe = SlamPipeline(Camera.from_yaml(cfg_dir / "camera.yml") if fused else camera,
+                            SlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH), device="cuda", nms_fused=fused)
+        out[name] = profile_stages.profile_stages(pipe, chunk, reps=10)
+        log(f"[{label}] profile_stages, {name} ({cfg_dir.relative_to(REPO)}), batch {BATCH}, on {card}:\n"
+            + profile_stages.format_table(out[name]))
+    cfg = SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH)
+    out["slam"] = profile_slam.profile_slam(camera, cfg, config_dir / "vocabulary_tree.npz", frames_np, "cuda")
+    log(f"[{label}] profile_slam, {len(frames_np)} frames batch {BATCH}, tree vocabulary, on {card}:\n"
+        + profile_slam.format_table(out["slam"]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2230,6 +2508,13 @@ def main() -> int:
     multiseq = timed_phase("multiseq", phase_multiseq, camera, config_dir, frames_np, card, main_uses)
     cli_ts = timed_phase("cli-timeshard", phase_cli_timeshard, card)
 
+    # The frame loader and the CLI over a directory, the soak past the keyframe ring, the stage profiles.
+    t_new = time.perf_counter()
+    loader = timed_phase("loader", phase_loader, camera, config_dir, frames_np, card)
+    soak = timed_phase("soak", phase_soak, card)
+    profile = timed_phase("profile", phase_profile, camera, config_dir, frames_np, card)
+    log(f"[new phases] loader, soak, profile took {time.perf_counter() - t_new:.1f} s")
+
     for r in records:
         on_pyramid = r["name"] == "fused_frontend_nms_batch"
         r["path"] = "pyramid (configs/multiscale, nms_fused)" if on_pyramid else "main (configs/)"
@@ -2250,7 +2535,9 @@ def main() -> int:
                                  "timeshard": timeshard["launches"][r["name"]],
                                  "timeshard_slam": ts_slam["vo"]["launches"][r["name"]],
                                  "timeshard_slam_pnp": ts_slam["pnp"]["launches"][r["name"]],
-                                 "multiseq": multiseq["launches"][r["name"]]}
+                                 "multiseq": multiseq["launches"][r["name"]],
+                                 "cli_directory": loader["cli_launches"][r["name"]],
+                                 "soak": soak["launches"][r["name"]]}
         if r["name"] in single["kernels"]:
             r["single_shape"] = single["kernels"][r["name"]]
         if r["name"] == "msac_scores":
@@ -2285,7 +2572,7 @@ def main() -> int:
                     "slam_lc_pnp": slam_lc["pnp"], "pose_graph_pcg": pose_graph, "stream": stream["vo"],
                     "stream_pnp": stream["pnp"], "localize": localize, "timeshard": timeshard,
                     "timeshard_slam": ts_slam["vo"], "timeshard_slam_pnp": ts_slam["pnp"], "multiseq": multiseq,
-                    "cli_timeshard": cli_ts}))
+                    "cli_timeshard": cli_ts, "loader": loader, "soak": soak, "profile": profile}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -82,10 +82,22 @@ def test_png_decoder_row_filters(tmp_path, ftype):
 
 
 def test_png_decoder_rejects_colour(tmp_path):
-    path = tmp_path / "rgb.png"
-    assert cv2.imwrite(str(path), np.zeros((4, 5, 3), np.uint8))
-    with pytest.raises(ValueError, match="grayscale"):
+    """Colour at a bit depth PNG forbids is refused, as libpng refuses it; legal colour reads as gray."""
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    path = tmp_path / "rgb4.png"
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", 5, 4, 4, 2, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(bytes(4 * 9))) + chunk(b"IEND", b""))
+    with pytest.raises(ValueError, match="bit depth 4 for colour type 2"):
         decode_png_gray8(path)
+    path = tmp_path / "rgb.png"
+    assert cv2.imwrite(str(path), np.full((4, 5, 3), (10, 200, 30), np.uint8))  # B, G, R
+    np.testing.assert_array_equal(decode_png_gray8(path), np.full((4, 5), (4899 * 30 + 9617 * 200 + 1868 * 10
+                                                                           + 8192) >> 14, np.uint8))
 
 
 def test_frame_stream_batches(data_dir):

@@ -324,9 +324,12 @@ class SlamPipeline:
     ) -> tuple[ChunkResult, VoState]:
         """One VO chunk: (B, H, W) uint8 frames, (B,) bool validity → (result, new carry)."""
         frames, frame_valid, n_real = self._to_device(frames, frame_valid)
-        kps, desc, match, mvalid, res, X_prev, X_cur, point_ok = self._two_view_stage(
-            frames, frame_valid, state, seed
-        )
+        two_view = self._two_view_stage(frames, frame_valid, state, seed)
+        return self._scale_and_chain(state, n_real, *two_view)
+
+    def _scale_and_chain(self, state: VoState, n_real: int, kps, desc, match, mvalid, res, X_prev, X_cur,
+                         point_ok) -> tuple[ChunkResult, VoState]:
+        """VO after the two-view stage: monocular scale from depth ratios, then the chained poses."""
         z_prev = X_prev[..., 2]
         z_cur = X_cur[..., 2]
 

@@ -1,11 +1,18 @@
-"""Host-side frame source: a directory of 8-bit grayscale PNG frames.
+"""Host-side frame source: a directory of PNG or JPEG frames.
 
-Port of ``tpuslam/pre/stream.py`` (directory mode).  The reference package
-decodes with OpenCV or its prebuilt native loader; neither is available on
-every machine the port runs on, so frames are decoded here with the
-standard library's ``zlib`` plus numpy.  Only the format the KITTI fixtures
-use is accepted — 8-bit grayscale, non-interlaced PNG with any of the five
-row filters — and anything else raises.  Video input is not ported yet.
+Port of ``tpuslam/pre/stream.py`` (directory mode).  Frames decode to
+grayscale uint8 through the port's own threaded C++ loader
+(``pre/native_loader.py``, ``native/frameloader.cpp``) by default, or, with
+``use_native=False``, through ``decode_png_gray8``: the loader's plain
+version in numpy and the standard library's ``zlib``, which reads PNG only.
+Both accept every PNG the reference's loader accepts — bit depths 1 to 16;
+gray, gray + alpha, RGB, RGBA and palette; tRNS; Adam7 interlacing — and
+convert as it does: 16-bit samples keep their high byte, low-depth gray
+expands to 8 bits, a palette expands to RGB, alpha is dropped, and colour
+becomes gray as ``(4899·R + 9617·G + 1868·B + 8192) >> 14``.  Interlaced
+files decode to the image (the reference's loader reads Adam7 pass rows
+as image rows; its OpenCV path decodes them right).  Video input is not
+ported.
 
 Undistortion is not done here: it is a gather on the device inside the
 pipeline (``tpuslam_torch.common.camera``).  ``device_prefetch`` stages the
@@ -27,7 +34,16 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from tpuslam_torch.pre.native_loader import FRAME_SUFFIXES, NativeFrameLoader
+
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+MEMMAP_CHUNK = 64  # frames_to_memmap decodes this many frames a call
+# colour type → (samples a pixel, allowed bit depths)
+_PNG_COLOUR = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+               4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7 passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_CRITICAL = (b"IHDR", b"PLTE", b"IDAT", b"IEND")
 
 
 def parse_timestamps(path: Path) -> list[float]:
@@ -54,82 +70,172 @@ def parse_timestamps(path: Path) -> list[float]:
     return out
 
 
-def _unfilter_row_slow(ftype: int, line: np.ndarray, prev: np.ndarray) -> np.ndarray:
-    """Average (3) and Paeth (4) filters: sequential along the row."""
-    out = np.zeros_like(line)
-    for x in range(line.shape[0]):
-        a = int(out[x - 1]) if x > 0 else 0
-        b = int(prev[x])
-        if ftype == 3:
-            pred = (a + b) // 2
-        else:
-            c = int(prev[x - 1]) if x > 0 else 0
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-        out[x] = (int(line[x]) + pred) & 0xFF
-    return out
+class PngError(ValueError):
+    """A PNG file the decoders refuse: not a PNG, corrupt, truncated or outside the format."""
 
 
-def decode_png_gray8(path: str | Path) -> np.ndarray:
-    """Decode an 8-bit grayscale, non-interlaced PNG → (H, W) uint8.
-
-    Raises ``ValueError`` for any other PNG format (colour, palette, 16-bit,
-    interlaced) and for a corrupt file.
-    """
-    data = Path(path).read_bytes()
+def _png_chunks(data: bytes, path) -> tuple[tuple, bytes, bytes]:
+    """(IHDR fields, PLTE body, the IDAT bodies joined); critical chunks' CRCs checked."""
     if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
-    pos = 8
-    header = None
-    idat = []
-    while pos + 8 <= len(data):
+        raise PngError(f"{path}: not a PNG file")
+    pos, header, plte, idat = 8, None, b"", []
+    while True:
+        if pos + 12 > len(data):
+            raise PngError(f"{path}: truncated before IEND")
         (length,) = struct.unpack(">I", data[pos : pos + 4])
         ctype = data[pos + 4 : pos + 8]
         body = data[pos + 8 : pos + 8 + length]
+        if len(body) < length or pos + 12 + length > len(data):
+            raise PngError(f"{path}: truncated {ctype!r} chunk")
+        if ctype in _CRITICAL:
+            (crc,) = struct.unpack(">I", data[pos + 8 + length : pos + 12 + length])
+            if zlib.crc32(ctype + body) != crc:
+                raise PngError(f"{path}: CRC error in the {ctype.decode()} chunk")
         pos += 12 + length
         if ctype == b"IHDR":
+            if length != 13:
+                raise PngError(f"{path}: IHDR of {length} bytes")
             header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            plte = body
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"IEND":
             break
     if header is None or not idat:
-        raise ValueError(f"{path}: missing IHDR or IDAT chunk")
-    width, height, depth, color, compression, filt, interlace = header
-    if (depth, color, compression, filt, interlace) != (8, 0, 0, 0, 0):
-        raise ValueError(
-            f"{path}: only 8-bit grayscale non-interlaced PNG is supported "
-            f"(bit depth {depth}, colour type {color}, interlace {interlace})"
-        )
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
-    if raw.size != height * (width + 1):
-        raise ValueError(f"{path}: decompressed size does not match the header")
-    rows = raw.reshape(height, width + 1)
-    out = np.empty((height, width), np.uint8)
-    prev = np.zeros(width, np.uint8)
-    for y in range(height):
+        raise PngError(f"{path}: missing IHDR or IDAT chunk")
+    return header, plte, b"".join(idat)
+
+
+def _pass_sizes(width: int, height: int, interlace: int) -> list[tuple[int, int, int, int, int, int]]:
+    """(x0, y0, dx, dy, pass width, pass height) of each non-empty pass; the whole image when not interlaced."""
+    if not interlace:
+        return [(0, 0, 1, 1, width, height)]
+    out = []
+    for x0, y0, dx, dy in ADAM7:
+        w, h = (width - x0 + dx - 1) // dx, (height - y0 + dy - 1) // dy
+        if w > 0 and h > 0:
+            out.append((x0, y0, dx, dy, w, h))
+    return out
+
+
+def _unfilter_sequential(ftype: int, line: bytearray, prev: bytes, bpp: int) -> None:
+    """Average (3) and Paeth (4) rows in place: each byte needs the one ``bpp`` to its left."""
+    n = len(line)
+    if ftype == 3:
+        for x in range(min(bpp, n)):
+            line[x] = (line[x] + (prev[x] >> 1)) & 0xFF
+        for x in range(bpp, n):
+            line[x] = (line[x] + ((line[x - bpp] + prev[x]) >> 1)) & 0xFF
+        return
+    for x in range(min(bpp, n)):  # a = c = 0: the predictor is b
+        line[x] = (line[x] + prev[x]) & 0xFF
+    for x in range(bpp, n):
+        a, b, c = line[x - bpp], prev[x], prev[x - bpp]
+        pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+        line[x] = (line[x] + (a if pa <= pb and pa <= pc else (b if pb <= pc else c))) & 0xFF
+
+
+def _unfilter(raw: np.ndarray, h: int, row_bytes: int, bpp: int, path) -> np.ndarray:
+    """Undo the row filters of one (pass) image → (h, row_bytes) uint8."""
+    rows = raw.reshape(h, row_bytes + 1)
+    out = np.empty((h, row_bytes), np.uint8)
+    prev = np.zeros(row_bytes, np.uint8)
+    for y in range(h):
         ftype = int(rows[y, 0])
         line = rows[y, 1:]
         if ftype == 0:
-            cur = line.copy()
-        elif ftype == 1:  # Sub: running sum along the row, mod 256
-            cur = np.cumsum(line, dtype=np.uint8)
+            cur = line
+        elif ftype == 1:  # Sub: a running sum mod 256 in each of the bpp byte lanes
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
         elif ftype == 2:  # Up
             cur = line + prev
         elif ftype in (3, 4):
-            cur = _unfilter_row_slow(ftype, line, prev)
+            buf = bytearray(line.tobytes())
+            _unfilter_sequential(ftype, buf, prev.tobytes(), bpp)
+            cur = np.frombuffer(buf, np.uint8)
         else:
-            raise ValueError(f"{path}: invalid PNG filter type {ftype} in row {y}")
+            raise PngError(f"{path}: invalid PNG filter type {ftype} in row {y}")
         out[y] = cur
-        prev = cur
+        prev = out[y]
+    return out
+
+
+def _samples(rows: np.ndarray, w: int, depth: int, channels: int) -> np.ndarray:
+    """Unfiltered rows → (h, w, channels) samples, 16-bit ones cut to their high byte."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.reshape(h, w, channels, 2)[..., 0]
+    if depth == 8:
+        return rows.reshape(h, w, channels)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)[:, :w]  # channels == 1 below 8 bits
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=-1, dtype=np.uint8)[..., None]
+
+
+def _to_gray(s: np.ndarray, colour: int, depth: int, plte: bytes) -> np.ndarray:
+    """(h, w, channels) samples → (h, w) gray, as the reference's loader converts them."""
+    if colour == 3:
+        palette = np.zeros((256, 3), np.uint8)  # indices past the palette read black
+        entries = np.frombuffer(plte, np.uint8).reshape(-1, 3)[:256]
+        palette[: len(entries)] = entries
+        s = palette[s[..., 0]]
+    elif colour in (0, 4):
+        g = s[..., 0]
+        if depth < 8:
+            g = g * np.uint8(255 // ((1 << depth) - 1))
+        return g
+    rgb = s[..., :3].astype(np.int32)
+    return ((4899 * rgb[..., 0] + 9617 * rgb[..., 1] + 1868 * rgb[..., 2] + 8192) >> 14).astype(np.uint8)
+
+
+def decode_png_gray8(path: str | Path) -> np.ndarray:
+    """Decode a PNG → (H, W) uint8 gray, in numpy and ``zlib``: the native loader's plain version.
+
+    Raises ``PngError`` (a ``ValueError``) for a file the loader refuses.
+    Average and Paeth rows run a Python loop over their bytes, so a file
+    of such rows decodes slowly.
+    """
+    header, plte, idat = _png_chunks(Path(path).read_bytes(), path)
+    width, height, depth, colour, compression, filt, interlace = header
+    if colour not in _PNG_COLOUR or depth not in _PNG_COLOUR[colour][1]:
+        raise PngError(f"{path}: invalid bit depth {depth} for colour type {colour}")
+    if width == 0 or height == 0 or compression or filt or interlace > 1:
+        raise PngError(f"{path}: invalid IHDR (size {width}x{height}, compression {compression}, "
+                       f"filter {filt}, interlace {interlace})")
+    if colour == 3 and (not plte or len(plte) % 3):
+        raise PngError(f"{path}: palette image without a valid PLTE chunk")
+    channels = _PNG_COLOUR[colour][0]
+    bits = depth * channels
+    bpp = max(1, bits // 8)
+    passes = _pass_sizes(width, height, interlace)
+    sizes = [h * ((w * bits + 7) // 8 + 1) for *_, w, h in passes]
+    try:
+        raw = zlib.decompressobj().decompress(idat, sum(sizes))
+    except zlib.error as exc:
+        raise PngError(f"{path}: corrupt image data ({exc})") from None
+    if len(raw) < sum(sizes):
+        raise PngError(f"{path}: not enough image data")
+    raw = np.frombuffer(raw, np.uint8)
+    out = np.empty((height, width), np.uint8)
+    offset = 0
+    for (x0, y0, dx, dy, w, h), size in zip(passes, sizes):
+        rows = _unfilter(raw[offset : offset + size], h, (w * bits + 7) // 8, bpp, path)
+        offset += size
+        out[y0::dy, x0::dx] = _to_gray(_samples(rows, w, depth, channels), colour, depth, plte)
     return out
 
 
 class FrameStream:
-    """Iterates grayscale uint8 frames from a directory of PNG files."""
+    """Iterates grayscale uint8 frames from a directory of PNG or JPEG files, in lexical order.
 
-    def __init__(self, stream_path: str | Path, frame_skip: int = 0):
+    ``use_native`` (the default) decodes through the threaded C++ loader,
+    built here at first use; a machine where it cannot be built raises
+    (``LoaderBuildError``), never decoding in Python unasked.
+    ``use_native=False`` decodes with ``decode_png_gray8`` (PNG only).
+    """
+
+    def __init__(self, stream_path: str | Path, frame_skip: int = 0, use_native: bool = True):
         self.path = Path(stream_path)
         self.frame_skip = frame_skip
         if not self.path.is_dir():
@@ -138,7 +244,7 @@ class FrameStream:
                 "video input is not ported yet"
             )
         self._files = sorted(
-            p for p in self.path.iterdir() if p.is_file() and p.suffix.lower() == ".png"
+            p for p in self.path.iterdir() if p.is_file() and p.suffix.lower() in FRAME_SUFFIXES
         )
         self.total_frames = len(self._files)
         ts_file = self.path / "timestamps.txt"
@@ -148,10 +254,31 @@ class FrameStream:
                 raise RuntimeError("Number of timestamps does not match number of frames.")
         else:
             self._timestamps = [float(i) for i in range(self.total_frames)]
+        self._native = None
+        if use_native and self.total_frames:
+            self._native = NativeFrameLoader(self.path)
+
+    def read_frames(self, indices: list[int], out: np.ndarray | None = None) -> np.ndarray:
+        """Decode the frames ``indices`` → (n, H, W) uint8, into ``out`` when it is given.
+
+        Through the loader, one call decodes them all on its thread pool.
+        """
+        if self._native is not None:
+            return self._native.decode_indices(indices, out)
+        for i, idx in enumerate(indices):
+            path = self._files[idx]
+            if path.suffix.lower() != ".png":
+                raise NotImplementedError(f"{path}: the Python decoder reads PNG only; JPEG frames need "
+                                          "the native loader (use_native=True)")
+            frame = decode_png_gray8(path)
+            if out is None:
+                out = np.empty((len(indices), *frame.shape), np.uint8)
+            out[i] = frame
+        return out
 
     def read_frame(self, index: int) -> tuple[np.ndarray, float]:
         """Decode frame ``index`` → (gray uint8 (H, W), timestamp seconds)."""
-        return decode_png_gray8(self._files[index]), self._timestamps[index]
+        return self.read_frames([index])[0], self._timestamps[index]
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, float]]:
         """(frame, timestamp) of every ``1 + frame_skip``-th frame, decoded one at a time."""
@@ -168,7 +295,8 @@ class FrameStream:
 
         The final chunk is padded by repeating the last frame, with ``valid``
         marking the real entries, so shapes stay fixed.  A background thread
-        decodes ahead of the consumer.  ``start_frame`` skips that many
+        decodes up to ``prefetch`` chunks ahead of the consumer, each chunk
+        in one ``read_frames`` call.  ``start_frame`` skips that many
         yielded frames (after ``frame_skip``).
         """
         indices = self.frame_indices()[start_frame:]
@@ -182,13 +310,13 @@ class FrameStream:
             try:
                 for s in range(0, len(indices), batch_size):
                     chunk = indices[s : s + batch_size]
-                    frames, stamps = zip(*(self.read_frame(i) for i in chunk))
-                    n = len(frames)
+                    n = len(chunk)
+                    frames = self.read_frames(chunk)
+                    stamps = [self._timestamps[i] for i in chunk]
                     if n < batch_size:
-                        frames = frames + (frames[-1],) * (batch_size - n)
-                        stamps = stamps + (stamps[-1],) * (batch_size - n)
-                    valid = np.arange(batch_size) < n
-                    q.put((np.stack(frames), np.asarray(stamps), valid))
+                        frames = np.concatenate([frames, np.repeat(frames[-1:], batch_size - n, 0)])
+                        stamps += [stamps[-1]] * (batch_size - n)
+                    q.put((frames, np.asarray(stamps), np.arange(batch_size) < n))
             except Exception as exc:  # handed to the consumer below
                 errors.append(exc)
             finally:
@@ -205,6 +333,11 @@ class FrameStream:
         if errors:
             raise errors[0]
 
+    def close(self) -> None:
+        """Release the loader's threads (the stream cannot decode afterwards)."""
+        if self._native is not None:
+            self._native.close()
+
 
 def frames_to_memmap(
     stream: FrameStream,
@@ -217,21 +350,23 @@ def frames_to_memmap(
     drivers (``dist/timeshard.py``) slice one long sequence into per-shard
     windows; a memmap leaves the frames to the page cache, and slicing a
     shard's window reads only its frames, where an in-RAM stack of the
-    whole video holds ~0.7 MB a frame.  ``path`` defaults to a new file in
-    the temporary directory, which the caller removes (``mm.filename``).
+    whole video holds ~0.7 MB a frame.  The frames are decoded ``chunk``
+    at a time straight into the file's pages.  ``path`` defaults to a new
+    file in the temporary directory, which the caller removes
+    (``mm.filename``).
     """
     import tempfile
 
     if indices is None:
         indices = stream.frame_indices()
-    first, _ = stream.read_frame(indices[0])
+    first = stream.read_frames(indices[:1])
     if path is None:
         with tempfile.NamedTemporaryFile(prefix="tpuslam_torch_frames_", suffix=".u8", delete=False) as f:
             path = f.name
-    mm = np.memmap(path, dtype=np.uint8, mode="w+", shape=(len(indices), *first.shape))
-    mm[0] = first
-    for row, idx in enumerate(indices[1:], start=1):
-        mm[row] = stream.read_frame(idx)[0]
+    mm = np.memmap(path, dtype=np.uint8, mode="w+", shape=(len(indices), *first.shape[1:]))
+    mm[0] = first[0]
+    for s in range(1, len(indices), MEMMAP_CHUNK):
+        stream.read_frames(indices[s : s + MEMMAP_CHUNK], out=mm[s : s + MEMMAP_CHUNK])
     mm.flush()
     return mm
 
