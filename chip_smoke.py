@@ -103,6 +103,11 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    frames x 1024 five-point samples x 10 candidates, 1024 matches; masked
    candidates hold NaN) against its twin at rtol 1e-5 on the unmasked rows,
    and the pose graph's PCG on a 300-node drift graph, card against CPU;
+   and the largest batched RANSAC-PnP call of the warm-up pass (its V
+   candidates, one ``_ransac`` call) against V unbatched ``ransac_pnp``
+   calls on the same candidates in this call: success and inliers
+   identical, T within 1e-4 (R) / 1e-3 (t); host ms and device kernels of
+   each;
 11. stream, stream-pnp — the streaming driver ``SlamSystem.run`` with the
    tree vocabulary over host numpy chunks shaped as ``FrameStream.batches``
    yields them, staged on the card by ``device_prefetch``, in VO and in PnP
@@ -131,13 +136,23 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    result keeps on the card may grow by at most 4 MiB from 96 to 192.
 13. timeshard — ``run_timesharded`` (VO, ``configs/``) over 192 frames cut
    into 4 time shards at batch 16 (S 48, V 16: four chunks a shard), the
-   shards in turn on the card: kernels 1-4 exactly 16 launches each, kernel 5
-   none; each shard's raw trajectory and ``pose_ok`` bit-equal to its window
-   run alone through ``process_sequence`` with seed + d; core ``pose_ok`` >=
-   90% of frames 1..191; the stitched trajectory's Sim(3)-aligned ATE
-   against ``process_sequence`` over the same 192 frames < 5% of its path
-   length; frames/s of both (the single run before and after), the
-   stitch's host ms;
+   four shards as one batched sequence of 64 frames a chunk on the card:
+   kernels 1-4 exactly 4 launches each (one a batched chunk), kernel 5
+   none; each shard against its window run alone in turn through
+   ``process_sequence`` with seed + d on the card (``pose_ok``,
+   ``num_matches``, ``num_inliers`` identical, poses within 1e-4 (R) /
+   1e-3 (t)); core ``pose_ok`` >= 90% of frames 1..191; the stitched
+   trajectory's Sim(3)-aligned ATE against ``process_sequence`` over the
+   same 192 frames < 5% of its path length; frames/s of the batched run,
+   of the windows in turn and of the single run (before and after), device
+   kernels of the batched pass and of one window alone,
+   ``max_memory_allocated``, the stitch's host ms;
+   kernels 1-4 against their twins on one batched chunk (64 frames);
+   multiseq-vo — four VO sequences (the 96 tiled frames from offsets 0, 5,
+   10, 15, seeds 0-3) through ``shard_batched_pipeline`` as one batched
+   step a chunk against each sequence's ``process_chunk`` calls in turn:
+   kernels 1-4 six launches each, kernel 5 none; the same hold; frames/s of
+   both, device kernels a batched step and a chunk, ``max_memory_allocated``;
 14. timeshard-slam, timeshard-slam-pnp — ``run_timesharded_system`` with
    the tree vocabulary at the reference's defaults over the same 192 frames
    and 4 shards, in VO and in PnP mode: kernels 1-4 at least 16 launches
@@ -151,6 +166,8 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    1e-3); frames/s against ``run_sequence``'s (before and after), the loop
    candidates each verifies, the shards', their folds', the stitch's, the
    cross pass's and the global pose graph's host time and the graph's N;
+   the verification A/B of ``[slam-lc]`` on the run's largest batched
+   RANSAC-PnP call;
 15. multiseq — ``shard_sequence_program`` with one PnP SLAM sequence (tree
    vocabulary) per card over the 96 frames (one sequence on one card):
    kernels 1-3 six launches a sequence, kernel 4 at least that, kernel 5
@@ -395,7 +412,7 @@ def int_mm_all_bins(patches, bins, weights, got) -> float:
 
 
 def msac_inputs(pipeline, blur: torch.Tensor, kps, operand: bool = True):
-    """Kernel 4's (E, P) as the main path builds them: descriptors of the 16 frames
+    """Kernel 4's (E, P) as the main path builds them: descriptors of the B frames
     matched pair by pair, 1024 eight-point hypotheses a pair, the (9, 5M) operand.
     With ``operand=False``: the normalised matches (x1, x2), their mask and the threshold."""
     from tpuslam_torch.common.geometry import normalize_points
@@ -403,11 +420,12 @@ def msac_inputs(pipeline, blur: torch.Tensor, kps, operand: bool = True):
     from tpuslam_torch.frontend.pose import _eight_point_rows, _solve_e_from_rows, draw_ranks
     from tpuslam_torch.kernels import pose as kp
 
+    b = blur.shape[0]
     kps2, desc = pipeline.detector.compute_from_blurred(blur, kps)
-    q, t = slice(0, BATCH - 1), slice(1, BATCH)
+    q, t = slice(0, b - 1), slice(1, b)
     m = match_descriptors(desc[q], desc[t], kps2.valid[q], kps2.valid[t], kps2.xy[q], kps2.xy[t],
                           filter_matches=False)
-    # pair 0 against itself keeps the batch at 16 pairs, as in the pipeline
+    # pair 0 against itself keeps the batch at B pairs, as in the pipeline
     qi = torch.cat([m.query_idx[:1].clamp_min(0), m.query_idx.clamp_min(0)])
     ti = torch.cat([m.query_idx[:1].clamp_min(0), m.train_idx.clamp_min(0)])
     valid = torch.cat([m.valid[:1], m.valid])
@@ -423,9 +441,9 @@ def msac_inputs(pipeline, blur: torch.Tensor, kps, operand: bool = True):
     gen = torch.Generator(device=blur.device).manual_seed(0)
     draws = draw_ranks(valid.sum(-1), H, 8, gen)
     rank_to_idx = torch.argsort((~valid).to(torch.int8), dim=-1, stable=True)
-    sample = torch.gather(rank_to_idx, 1, draws.reshape(BATCH, -1))
+    sample = torch.gather(rank_to_idx, 1, draws.reshape(b, -1))
     rows = torch.gather(_eight_point_rows(x1, x2), 1, sample[..., None].expand(-1, -1, 9))
-    E = _solve_e_from_rows(rows.reshape(BATCH, H, 8, 9), project=False, sweeps=3).reshape(BATCH, H, 9)
+    E = _solve_e_from_rows(rows.reshape(b, H, 8, 9), project=False, sweeps=3).reshape(b, H, 9)
     return E, kp.build_msac_operand(x1, x2, valid, (1.0 / focal) ** 2)
 
 
@@ -1028,7 +1046,7 @@ def pnp_chunk_inputs(pipeline, frames: torch.Tensor, valid: torch.Tensor, state,
 
     vo = state.vo
     kps, _, match, mvalid, res, X_prev, X_cur, point_ok = pipeline._two_view_stage(
-        frames, valid.to(frames.device), vo, seed)
+        frames[None], valid.to(frames.device)[None], [vo], [seed])
     fids = [vo.frame_idx + i for i in range(frames.shape[0])]
     args = (state.map, state.assoc, pipeline.K, vo.pose, fids, valid.to(frames.device), None,
             res.R, res.t, res.success, kps.xy, match.query_idx, match.train_idx, mvalid, X_cur,
@@ -1591,7 +1609,8 @@ def phase_slam_lc(camera, config_dir: Path, frames_np: np.ndarray, card: str, us
     vocab = config_dir / "vocabulary_tree.npz"
     system = SlamSystem(camera, cfg, vocabulary=vocab, tracking=tracking, device="cuda")
     n_chunks = N_FRAMES // BATCH
-    system.run_sequence(frames_np, seed=1)  # warm-up
+    with RansacRecorder(system.loop_closure) as ransacs:
+        system.run_sequence(frames_np, seed=1)  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1620,6 +1639,7 @@ def phase_slam_lc(camera, config_dir: Path, frames_np: np.ndarray, card: str, us
     rec = {"fps": fps, "chunk_ms": chunk_ms, "main_chunk_ms": main_chunk_ms, "pose_ok_share": ok_frac,
            "loops": len(loops), "loop_pairs": [[lp["frame_id"], lp["matched_keyframe_id"]] for lp in loops],
            "reloc_frames": int(out["reloc_ok"].sum()), "db_count": int(db.count), "launches": counts}
+    rec["verify_ab"] = verify_ab(label, system.loop_closure, ransacs.args, card)
 
     # One chunk in parts from the state after the first: tracking, then the loop-closure stage; the
     # second chunk revisits the first's places, so it has candidates.
@@ -1964,13 +1984,69 @@ def check_core_pose_ok(label: str, pose_ok: np.ndarray) -> float:
     return share
 
 
+def batched_kernel_records(label: str, pipeline, frames: torch.Tensor) -> dict:
+    """Kernels 1-4 against their twins on the frames of one batched chunk (S·B of them), as
+    ``main_blur_kps`` and ``msac_inputs`` build the main path's inputs: device ms, twin ms, bound."""
+    from tpuslam_torch.common.camera import undistort_batch
+    from tpuslam_torch.frontend.brief import orientations_from_patches, quantize_angles
+    from tpuslam_torch.kernels import brief as kb
+    from tpuslam_torch.kernels import frontend as kf
+    from tpuslam_torch.kernels import pose as kp
+
+    det = pipeline.detector
+    c = det.config
+    und = undistort_batch(frames, pipeline.undistort_idx, pipeline.undistort_valid)
+    args = dict(threshold=c.intensity_threshold, contiguous=c.contiguous_pixels_threshold, taps=det.blur_kernel)
+    out = {}
+    out["fused_frontend_batch"] = shape_record(
+        f"[{label}] fused_frontend_batch", kf.fused_frontend_batch(und, **args),
+        kf.fused_frontend_reference(und, **args), lambda: kf.fused_frontend_batch(und, **args),
+        lambda: kf.fused_frontend_reference(und, **args), True, kf.frontend_work(*und.shape), und.shape)
+    blur, kps = main_blur_kps(pipeline, frames)
+    patches = kb.extract_brief_patches(blur, kps.xy, c.patch_size)
+    out["extract_brief_patches"] = shape_record(
+        f"[{label}] extract_brief_patches", (patches,),
+        (kb.extract_brief_patches_reference(blur, kps.xy, c.patch_size),),
+        lambda: kb.extract_brief_patches(blur, kps.xy, c.patch_size),
+        lambda: kb.extract_brief_patches_reference(blur, kps.xy, c.patch_size), True,
+        kb.extract_patches_work(*blur.shape, kps.xy.shape[1], c.patch_size), patches.shape)
+    angles = orientations_from_patches(patches, det.moment_weights, kps, c.patch_size, blur.shape[-2:])
+    bins = quantize_angles(angles, c.brief_quantized_bins)
+    W, W3 = det.bin_weights, det.bin_weights_3d
+    dots = kb.brief_own_bin_dots(patches, bins, W)
+    out["brief_own_bin_dots"] = shape_record(
+        f"[{label}] brief_own_bin_dots", (dots,), (kb.brief_own_bin_dots_reference(patches, bins, W3),),
+        lambda: kb.brief_own_bin_dots(patches, bins, W), lambda: kb.brief_own_bin_dots_reference(patches, bins, W3),
+        True, kb.own_bin_dots_work(bins, W), dots.shape)
+    E, P = msac_inputs(pipeline, blur, kps)
+    out["msac_scores"] = shape_record(
+        f"[{label}] msac_scores", (kp.msac_scores(E, P),), (kp.msac_scores_reference(E, P),),
+        lambda: kp.msac_scores(E, P), lambda: kp.msac_scores_reference(E, P), False,
+        kp.msac_work(*E.shape[:2], P.shape[-1] // 5), (*E.shape[:2], P.shape[-1] // 5))
+    return out
+
+
+def hold_vo_results(label: str, got, want, what: str) -> dict:
+    """Batched against in-turn VO results: pose_ok, num_matches and num_inliers identical, poses within
+    1e-4 (rotation) and 1e-3 (position); the largest differences."""
+    for k in ("pose_ok", "num_matches", "num_inliers"):
+        if not torch.equal(getattr(got, k), getattr(want, k)):
+            raise AssertionError(f"[{label}] {what}: {k} differs between the batched run and the run in turn")
+    g, w = got.poses.double(), want.poses.double()
+    rot = float((g[..., :3, :3] - w[..., :3, :3]).abs().max())
+    pos = float((g[..., :3, 3] - w[..., :3, 3]).abs().max())
+    if rot > 1e-4 or pos > 1e-3:
+        raise AssertionError(f"[{label}] {what}: poses differ by R {rot}, t {pos}")
+    return {"rotation_diff": rot, "position_diff": pos, "bit_equal": bool(torch.equal(got.poses, want.poses))}
+
+
 def phase_timeshard(camera, config_dir: Path, frames_np: np.ndarray, card: str, uses) -> dict:
-    """VO over the frames cut into TS_SHARDS time shards (``run_timesharded``), against the same frames
-    run single and each shard's window run alone."""
+    """VO over the frames cut into TS_SHARDS time shards (``run_timesharded``: the shards of the card as
+    one batched sequence), against each shard's window run alone in turn and the frames run single."""
     from tpuslam_torch.config.schema import SlamConfig
     from tpuslam_torch.dist.timeshard import run_timesharded, stage_shard, stitch_segments
     from tpuslam_torch.kernels import launch_counts, reset_launch_counts
-    from tpuslam_torch.model.slam import SlamPipeline
+    from tpuslam_torch.model.slam import SlamPipeline, _stack_results
 
     label = "timeshard"
     pipeline = SlamPipeline(camera, SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH), device="cuda")
@@ -1979,36 +2055,147 @@ def phase_timeshard(camera, config_dir: Path, frames_np: np.ndarray, card: str, 
     valid = torch.ones(chunks.shape[:2], dtype=torch.bool)
     result, single_s, _, _ = drive(pipeline, chunks, valid, seed=0)
     single = result.poses.reshape(-1, 4, 4).cpu().numpy()
+    run_timesharded(pipeline, frames_np, TS_SHARDS, seed=1)  # warm-up at the batched shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
     out = run_timesharded(pipeline, frames_np, TS_SHARDS, seed=0)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     S, V = out["S"], out["V"]
     per_shard = (S + V) // BATCH
-    check_launches(label, counts, {**{k: TS_SHARDS * per_shard for k in uses}, "fused_frontend_nms_batch": 0})
+    # the shards run as one batched sequence: one launch of each kernel a batched chunk
+    check_launches(label, counts, {**{k: per_shard for k in uses}, "fused_frontend_nms_batch": 0})
+    kernels_pass = count_kernels(lambda: run_timesharded(pipeline, frames_np, TS_SHARDS, seed=0))
+
+    # the same windows one after another, each through process_sequence with seed + d
+    windows = [stage_shard(frames_np, d, S, V, BATCH, "cuda") for d in range(TS_SHARDS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    alone = [pipeline.process_sequence(w, w_valid, pipeline.initial_state(), seed=d)[0]
+             for d, (w, w_valid) in enumerate(windows)]
+    torch.cuda.synchronize()
+    turn_s = time.perf_counter() - t0
+    # one window alone (the four are alike in length): the profiler's cost grows with the kernels it records
+    kernels_window = count_kernels(lambda: pipeline.process_sequence(*windows[0], pipeline.initial_state(), seed=0))
     _, single_s2, _, _ = drive(pipeline, chunks, valid, seed=0)
-    for d in range(TS_SHARDS):  # each shard is its window run alone with seed + d, bit for bit
-        shard, shard_valid = stage_shard(frames_np, d, S, V, BATCH, "cuda")
-        alone, _ = pipeline.process_sequence(shard, shard_valid, pipeline.initial_state(), seed=d)
-        if not (np.array_equal(alone.poses.reshape(-1, 4, 4).cpu().numpy(), out["segments"][d])
-                and np.array_equal(alone.pose_ok.reshape(-1).cpu().numpy(), out["segments_ok"][d])):
-            raise AssertionError(f"[{label}] shard {d} differs from its window run alone")
+    # each shard against its window alone: the batched call's every field, and run_timesharded's segments
+    states, by_chunk = [pipeline.initial_state() for _ in windows], []
+    for c in range(per_shard):  # the batched step over the staged windows, for its every field
+        results, states = pipeline.process_chunks(torch.stack([w[c] for w, _ in windows]),
+                                                   torch.stack([v[c] for _, v in windows]), states,
+                                                   list(range(TS_SHARDS)))
+        by_chunk.append(results)
+    batched = [_stack_results([r[d] for r in by_chunk]) for d in range(TS_SHARDS)]
+    held = [hold_vo_results(label, b, a, f"shard {d}") for d, (b, a) in enumerate(zip(batched, alone))]
+    for d, a in enumerate(alone):
+        if not np.array_equal(a.pose_ok.reshape(-1).cpu().numpy(), out["segments_ok"][d]):
+            raise AssertionError(f"[{label}] run_timesharded's shard {d} pose_ok differs from its window alone")
+        seg = np.abs(a.poses.reshape(-1, 4, 4).cpu().numpy().astype(np.float64) - out["segments"][d])
+        if seg[:, :3, :3].max() > 1e-4 or seg[:, :3, 3].max() > 1e-3:
+            raise AssertionError(f"[{label}] run_timesharded's shard {d} differs from its window alone: "
+                                 f"R {seg[:, :3, :3].max()}, t {seg[:, :3, 3].max()}")
     ok_share = check_core_pose_ok(label, out["pose_ok"])
     if not np.isfinite(out["poses"]).all():
         raise AssertionError(f"[{label}] non-finite stitched poses")
     ate, path = check_ate(label, out["poses"], single)
     stitch_ms = 1e3 * float(np.median([_host_s(stitch_segments, out["segments"], S, V, n, out["segments_ok"])
                                        for _ in range(5)]))
-    rec = {"frames": n, "shards": TS_SHARDS, "S": S, "V": V, "fps": n / run_s, "single_fps": [n / single_s,
-           n / single_s2], "pose_ok_share": ok_share, "ate": ate, "path": path, "stitch_ms": stitch_ms,
-           "launches": counts}
-    log(f"[{label}] {n} frames in {TS_SHARDS} shards (S {S}, V {V}, {per_shard} chunks a shard), in turn on one "
-        f"card: {rec['fps']:.2f} frames/s against the single run's {rec['single_fps'][0]:.2f} and "
-        f"{rec['single_fps'][1]:.2f} (before, after); each shard bit-equal to its window alone; core pose_ok "
-        f"{ok_share:.3f}; ATE {ate:.4f} against the single run ({100 * ate / path:.2f}% of its {path:.3f} path); "
-        f"stitch {stitch_ms:.3f} ms on the host; on {card}")
+    # kernels 1-4 against their twins on one batched chunk: chunk 0 of every shard, S·B frames
+    ts_kernels = batched_kernel_records(label, pipeline, torch.cat([w[0] for w, _ in windows]))
+    log(f"[{label}] kernels 1-4 on one batched chunk of {TS_SHARDS * BATCH} frames held against their twins: " +
+        ", ".join(f"{k} {r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, bound {1e3 * r['bound_ms']:.2f} us)"
+                  for k, r in ts_kernels.items()) + f" on {card}")
+    rec = {"frames": n, "shards": TS_SHARDS, "S": S, "V": V, "fps": n / run_s,
+           "windows_in_turn_fps": TS_SHARDS * (S + V) / turn_s, "batched_window_fps": TS_SHARDS * (S + V) / run_s,
+           "single_fps": [n / single_s, n / single_s2], "pose_ok_share": ok_share, "ate": ate, "path": path,
+           "stitch_ms": stitch_ms, "device_kernels_per_pass": kernels_pass,
+           "device_kernels_one_window_alone": kernels_window, "peak_memory_bytes": peak,
+           "batched_vs_alone": held, "kernels_at_batch": ts_kernels, "launches": counts}
+    worst = (max(h["rotation_diff"] for h in held), max(h["position_diff"] for h in held))
+    log(f"[{label}] {n} frames in {TS_SHARDS} shards (S {S}, V {V}, {per_shard} chunks a shard) as one batched "
+        f"sequence of {TS_SHARDS * BATCH} frames a chunk: {rec['fps']:.2f} frames/s ({rec['batched_window_fps']:.2f} "
+        f"window frames/s) against the windows alone in turn {rec['windows_in_turn_fps']:.2f} window frames/s and "
+        f"the single run's {rec['single_fps'][0]:.2f} and {rec['single_fps'][1]:.2f} (before, after); device "
+        f"kernels a pass {kernels_pass} batched, {kernels_window} a window alone; peak memory {peak / 2**30:.3f} GiB; "
+        f"each shard against its window alone: integer fields identical, poses within R {worst[0]:.2e}, t "
+        f"{worst[1]:.2e} (bit-equal {[h['bit_equal'] for h in held]}); core pose_ok {ok_share:.3f}; ATE "
+        f"{ate:.4f} against the single run ({100 * ate / path:.2f}% of its {path:.3f} path); stitch "
+        f"{stitch_ms:.3f} ms on the host; on {card}")
+    return rec
+
+
+def phase_multiseq_vo(camera, config_dir: Path, card: str, uses) -> dict:
+    """Four VO sequences as one batched chunk step (``shard_batched_pipeline`` on the card) against each
+    sequence's ``process_chunk`` calls in turn."""
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.dist.mesh import shard_batched_pipeline
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.model.slam import SlamPipeline, _stack_results
+
+    label = "multiseq-vo"
+    n_seq, offset = 4, 5
+    pipeline = SlamPipeline(camera, SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH), device="cuda")
+    tiled = load_frames(N_FRAMES + offset * (n_seq - 1))
+    n_chunks = N_FRAMES // BATCH
+    # sequence s: the tiled path from frame offset·s, seed s
+    seqs = torch.from_numpy(np.stack([tiled[offset * s: offset * s + N_FRAMES] for s in range(n_seq)])).cuda()
+    seqs = seqs.reshape(n_seq, n_chunks, BATCH, *tiled.shape[1:])
+    valid = torch.ones((n_seq, BATCH), dtype=torch.bool)
+    seeds = list(range(n_seq))
+    step = shard_batched_pipeline(pipeline, ["cuda"])
+
+    def batched():
+        states, out = [pipeline.initial_state() for _ in seeds], []
+        for c in range(n_chunks):
+            results, states = step(seqs[:, c], valid, states, seeds)
+            out.append(results)
+        return [_stack_results([r[s] for r in out]) for s in range(n_seq)]
+
+    def in_turn():
+        out = []
+        for s in seeds:
+            state, rs = pipeline.initial_state(), []
+            for c in range(n_chunks):
+                r, state = pipeline.process_chunk(seqs[s, c], valid[s], state, seed=s)
+                rs.append(r)
+            out.append(_stack_results(rs))
+        return out
+
+    batched()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = batched()
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(label, counts, {**{k: n_chunks for k in uses}, "fused_frontend_nms_batch": 0})
+    t0 = time.perf_counter()
+    want = in_turn()
+    torch.cuda.synchronize()
+    turn_s = time.perf_counter() - t0
+    held = [hold_vo_results(label, g, w, f"sequence {s}") for s, (g, w) in enumerate(zip(got, want))]
+    for s, g in enumerate(got):
+        if float(g.pose_ok.reshape(-1)[1:].float().mean()) < 0.9:
+            raise AssertionError(f"[{label}] sequence {s}: pose_ok on too few frames")
+    step_kernels = count_kernels(lambda: step(seqs[:, 1], valid, [pipeline.initial_state() for _ in seeds], seeds))
+    chunk_kernels = count_kernels(lambda: pipeline.process_chunk(seqs[0, 1], valid[0], pipeline.initial_state()))
+    total = n_seq * N_FRAMES
+    rec = {"sequences": n_seq, "frames": N_FRAMES, "fps": total / batched_s, "in_turn_fps": total / turn_s,
+           "device_kernels_per_batched_step": step_kernels, "device_kernels_per_chunk": chunk_kernels,
+           "peak_memory_bytes": peak, "batched_vs_in_turn": held, "launches": counts}
+    worst = (max(h["rotation_diff"] for h in held), max(h["position_diff"] for h in held))
+    log(f"[{label}] {n_seq} VO sequences of {N_FRAMES} frames (batch {BATCH}) as one batched step of "
+        f"{n_seq * BATCH} frames: {rec['fps']:.2f} frames/s against {rec['in_turn_fps']:.2f} in turn; device "
+        f"kernels a batched step {step_kernels}, a process_chunk {chunk_kernels}; peak memory "
+        f"{peak / 2**30:.3f} GiB; integer fields identical, poses within R {worst[0]:.2e}, t {worst[1]:.2e} "
+        f"(bit-equal {[h['bit_equal'] for h in held]}); on {card}")
     return rec
 
 
@@ -2067,6 +2254,69 @@ class VerifyCounter:
         del self.lc._verify_impl
 
 
+class RansacRecorder:
+    """Keeps the arguments of the largest batched RANSAC-PnP call ``LoopClosure._ransac`` makes while it is
+    installed on ``lc`` (the candidates of one verification or relocalization)."""
+
+    def __init__(self, lc):
+        self.lc, self.args = lc, None
+
+    def __enter__(self):
+        ransac = self.lc._ransac
+
+        def recorded(pts3d, *args):
+            if self.args is None or pts3d.shape[0] > self.args[0].shape[0]:
+                self.args = (pts3d, *args)
+            return ransac(pts3d, *args)
+
+        self.lc._ransac = recorded
+        return self
+
+    def __exit__(self, *exc):
+        del self.lc._ransac
+
+
+def verify_ab(label: str, lc, args, card: str) -> dict:
+    """One batched RANSAC-PnP call over V candidates against V unbatched ``ransac_pnp`` calls on the same
+    candidates, in this call: success and inliers identical, T within 1e-4 (R) / 1e-3 (t); host ms
+    (synchronised) and device kernels of each."""
+    from tpuslam_torch.backend.loop_closure import _rt
+    from tpuslam_torch.backend.pnp import ransac_pnp
+
+    pts3d, pts2d, valid, K, samples = args
+    V = pts3d.shape[0]
+    cfg = lc.config
+    kw = dict(num_hypotheses=samples.shape[1], sample_size=6, reproj_threshold=cfg.ransac_reprojection_threshold,
+              min_inliers=cfg.min_inliers_for_pnp, hyp_sweeps=6, lo_rounds=2, refine="gn")
+
+    def batched():
+        return lc._ransac(pts3d, pts2d, valid, K, samples)
+
+    def singles():
+        res = [ransac_pnp(pts3d[v], pts2d[v], valid[v], K, samples[v], **kw) for v in range(V)]
+        return (torch.stack([r.success for r in res]), _rt(torch.stack([r.R for r in res]),
+                torch.stack([r.t for r in res])), torch.stack([r.num_inliers for r in res]))
+
+    (b_ok, b_T, b_n), (s_ok, s_T, s_n) = batched(), singles()
+    if not torch.equal(b_ok, s_ok) or not torch.equal(b_n, s_n):
+        raise AssertionError(f"[{label}] batched verification != {V} single calls: ok {b_ok.tolist()} vs "
+                             f"{s_ok.tolist()}, inliers {b_n.tolist()} vs {s_n.tolist()}")
+    rot = float((b_T[:, :3, :3] - s_T[:, :3, :3]).abs().max())
+    pos = float((b_T[:, :3, 3] - s_T[:, :3, 3]).abs().max())
+    if rot > 1e-4 or pos > 1e-3:
+        raise AssertionError(f"[{label}] batched verification != {V} single calls: R {rot}, t {pos}")
+    rec = {"candidates": V, "hypotheses": samples.shape[1], "matches": pts3d.shape[1],
+           "verified": int(b_ok.sum()), "batched_ms": synced_ms(batched), "singles_ms": synced_ms(singles),
+           "batched_device_kernels": count_kernels(batched), "singles_device_kernels": count_kernels(singles),
+           "rotation_diff": rot, "position_diff": pos, "bit_equal": bool(torch.equal(b_T, s_T))}
+    log(f"[{label}] verification A/B on {V} candidates ({rec['hypotheses']} hypotheses, {rec['matches']} "
+        f"matches, {rec['verified']} verified): one batched ransac_pnp {rec['batched_ms']:.2f} ms, "
+        f"{rec['batched_device_kernels']} device kernels; {V} single calls {rec['singles_ms']:.2f} ms, "
+        f"{rec['singles_device_kernels']} device kernels; success and inliers identical, T within R {rot:.2e}, "
+        f"t {pos:.2e} (bit-equal {rec['bit_equal']}); on {card}")
+    return rec
+
+
 def phase_timeshard_slam(camera, config_dir: Path, frames_np: np.ndarray, card: str, uses, tracking: str) -> dict:
     """Full SLAM over the frames cut into TS_SHARDS time shards (``run_timesharded_system``), against
     ``run_sequence`` over the same frames."""
@@ -2088,7 +2338,7 @@ def phase_timeshard_slam(camera, config_dir: Path, frames_np: np.ndarray, card: 
 
     with VerifyCounter(system.loop_closure) as single_verified:
         single, single_s = run_single()
-    with VerifyCounter(system.loop_closure) as sharded_verified:
+    with VerifyCounter(system.loop_closure) as sharded_verified, RansacRecorder(system.loop_closure) as ransacs:
         reset_launch_counts()
         t0 = time.perf_counter()
         out = run_timesharded_system(system, frames_np, TS_SHARDS, seed=0)
@@ -2117,6 +2367,7 @@ def phase_timeshard_slam(camera, config_dir: Path, frames_np: np.ndarray, card: 
     ate, path = check_ate(label, out["poses"], single["poses"])
     cpu_system = SlamSystem(camera, cfg, vocabulary=vocab, tracking=tracking, device="cpu")
     cross_check = check_cross_card_equals_cpu(label, system, cpu_system, out["dbs"], TS_SHARDS, S, V, n)
+    ab = verify_ab(label, system.loop_closure, ransacs.args, card)
     sec = out["seconds"]
     in_shard = len(out["loops"]) - len(out["cross_loops"])
     rec = {"frames": n, "shards": TS_SHARDS, "S": S, "V": V, "fps": n / run_s,
@@ -2129,7 +2380,7 @@ def phase_timeshard_slam(camera, config_dir: Path, frames_np: np.ndarray, card: 
            single_verified.candidates, "stitch_ms": 1e3 * sec["stitch"],
            "cross_ms": 1e3 * sec["cross"], "global_pose_graph_ms": 1e3 * sec["pose_graph"],
            "global_pose_graph_nodes": len(out["global_keyframes"]), "single_loops": len(single["loops"]),
-           "cross_card_vs_cpu": cross_check, "launches": counts}
+           "cross_card_vs_cpu": cross_check, "verify_ab": ab, "launches": counts}
     log(f"[{label}] {n} frames in {TS_SHARDS} shards (S {S}, V {V}) in turn on one card: {rec['fps']:.2f} "
         f"frames/s against run_sequence's {rec['single_fps'][0]:.2f} and {rec['single_fps'][1]:.2f} (before, "
         f"after) in this call; core pose_ok {ok_share:.3f}; "
@@ -2502,6 +2753,7 @@ def main() -> int:
     # modes; then one PnP SLAM sequence per card, and the CLI's --timeshard.
     ts_frames = load_frames(TS_FRAMES)
     timeshard = timed_phase("timeshard", phase_timeshard, camera, config_dir, ts_frames, card, main_uses)
+    multiseq_vo = timed_phase("multiseq-vo", phase_multiseq_vo, camera, config_dir, card, main_uses)
     ts_slam = {tracking: timed_phase("timeshard-slam" if tracking == "vo" else "timeshard-slam-pnp",
                                      phase_timeshard_slam, camera, config_dir, ts_frames, card, main_uses, tracking)
                for tracking in ("vo", "pnp")}
@@ -2536,8 +2788,11 @@ def main() -> int:
                                  "timeshard_slam": ts_slam["vo"]["launches"][r["name"]],
                                  "timeshard_slam_pnp": ts_slam["pnp"]["launches"][r["name"]],
                                  "multiseq": multiseq["launches"][r["name"]],
+                                 "multiseq_vo": multiseq_vo["launches"][r["name"]],
                                  "cli_directory": loader["cli_launches"][r["name"]],
                                  "soak": soak["launches"][r["name"]]}
+        if r["name"] in timeshard["kernels_at_batch"]:
+            r["timeshard_batch_shape"] = timeshard["kernels_at_batch"][r["name"]]
         if r["name"] in single["kernels"]:
             r["single_shape"] = single["kernels"][r["name"]]
         if r["name"] == "msac_scores":
@@ -2571,7 +2826,7 @@ def main() -> int:
                     "profiling": profiling, "pnp": pnp, "slam": slam["vo"], "slam_pnp": slam["pnp"], "slam_lc": slam_lc["vo"],
                     "slam_lc_pnp": slam_lc["pnp"], "pose_graph_pcg": pose_graph, "stream": stream["vo"],
                     "stream_pnp": stream["pnp"], "localize": localize, "timeshard": timeshard,
-                    "timeshard_slam": ts_slam["vo"], "timeshard_slam_pnp": ts_slam["pnp"], "multiseq": multiseq,
+                    "timeshard_slam": ts_slam["vo"], "timeshard_slam_pnp": ts_slam["pnp"], "multiseq": multiseq, "multiseq_vo": multiseq_vo,
                     "cli_timeshard": cli_ts, "loader": loader, "soak": soak, "profile": profile}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

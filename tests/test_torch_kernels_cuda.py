@@ -51,6 +51,16 @@ the CPU and to row 0 of the batch; ``PoseEstimator`` given draws equals the
 CPU (integer fields identical, R 1e-4, t 1e-3); ``Vocabulary.fit`` trains
 the CPU's centroids (IDF 1e-6); ``time_fn`` and ``device_trace`` see the
 card's kernels.
+
+The batch axes: kernels 1-4 at the batched VO path's batch of 64
+full-width frames (four 16-frame sequences or time shards as one chunk)
+against their twins; ``SlamPipeline.process_chunks`` over three sequences
+on the card against each sequence's ``process_chunk`` (integers identical,
+poses 1e-4 / 1e-3); batched ``ransac_pnp`` over five problems against five
+unbatched calls on the card (success and inliers identical, R 1e-4, t
+1e-3); an unbatched ``motion_pnp`` and ``ransac_pnp`` on the card equal
+their 2-D formulation, the products they computed before the problem axis,
+bit for bit.
 """
 
 from pathlib import Path
@@ -1093,3 +1103,172 @@ def test_profiling_sees_the_card(dev, tmp_path):
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     assert any("frontend" in n for n in names), sorted(names)[:20]
+
+
+def test_kernels_1_to_4_at_batch_64(dev):
+    """The batched VO path's chunk: 64 full-width frames (the ten fixtures tiled), 1024 keypoints."""
+    from tpuslam_torch.config.schema import DetectorConfig
+    from tpuslam_torch.frontend.brief import orientations_from_patches, quantize_angles
+    from tpuslam_torch.frontend.detector import FeatureDetector
+
+    det = FeatureDetector(DetectorConfig.from_yaml(IMAGES.parent.parent.parent / "configs" / "feature_detector.yml"),
+                          device=dev)
+    c = det.config
+    frames = _full_frames(10)[torch.arange(64) % 10].contiguous().to(dev)
+    args = dict(threshold=c.intensity_threshold, contiguous=c.contiguous_pixels_threshold, taps=det.blur_kernel)
+    got = kf.fused_frontend_batch(frames, **args)
+    for g, w in zip(got, kf.fused_frontend_reference(frames, **args)):
+        assert torch.equal(g, w)
+    blur, kps = det._detect_level(frames, c.max_keypoints)
+    assert kps.xy.shape == (64, 1024, 2) and int(kps.valid.sum()) > 64 * 300
+    patches = kb.extract_brief_patches(blur, kps.xy, c.patch_size)
+    assert torch.equal(patches, kb.extract_brief_patches_reference(blur, kps.xy, c.patch_size))
+    angles = orientations_from_patches(patches, det.moment_weights, kps, c.patch_size, blur.shape[-2:])
+    bins = quantize_angles(angles, c.brief_quantized_bins)
+    dots = kb.brief_own_bin_dots(patches, bins, det.bin_weights)
+    assert torch.equal(dots, kb.brief_own_bin_dots_reference(patches, bins, det.bin_weights_3d))
+    E, P = _kernel4_case(dev, 64, 1024, 1024)
+    torch.testing.assert_close(kp.msac_scores(E, P), kp.msac_scores_reference(E, P), rtol=1e-5, atol=0.0)
+
+
+def test_batched_vo_step_on_card(dev):
+    """Three sequences from frames 0, 2 and 4 of the fixtures (K 512, 256 hypotheses, batch 4), two
+    batched steps (the second ragged) against each sequence's ``process_chunk`` on the card."""
+    import dataclasses
+
+    from tpuslam_torch.common.camera import Camera
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.model.slam import SlamPipeline
+
+    cfg_dir = IMAGES.parent.parent.parent / "configs"
+    cfg = SlamConfig.from_yaml_dir(cfg_dir, batch_size=4)
+    cfg = dataclasses.replace(cfg, detector=dataclasses.replace(cfg.detector, max_keypoints=512),
+                              pose=dataclasses.replace(cfg.pose, num_hypotheses=256))
+    pipe = SlamPipeline(Camera.from_yaml(cfg_dir / "camera.yml"), cfg, device=dev)
+    imgs = _full_frames(10).to(dev)
+    seqs = torch.stack([imgs[2 * s: 2 * s + 6] for s in range(3)])  # (3, 6, H, W): chunks of 4 and 2 frames
+    seeds = [3, 4, 5]
+    states = [pipe.initial_state() for _ in seeds]
+    want = list(states)
+    for lo, n in ((0, 4), (4, 2)):
+        frames = torch.cat([seqs[:, lo:lo + n], seqs[:, lo + n - 1:lo + n].expand(3, 4 - n, *seqs.shape[2:])], 1)
+        frames = frames.contiguous()
+        valid = torch.arange(4).expand(3, 4) < n
+        results, states = pipe.process_chunks(frames, valid, states, seeds)
+        for s in range(3):
+            w, want[s] = pipe.process_chunk(frames[s], valid[s], want[s], seeds[s])
+            for k in ("pose_ok", "num_matches", "num_inliers"):
+                assert torch.equal(getattr(results[s], k), getattr(w, k)), (lo, s, k)
+            torch.testing.assert_close(results[s].poses[:, :3, :3], w.poses[:, :3, :3], rtol=0, atol=1e-4)
+            torch.testing.assert_close(results[s].poses[:, :3, 3], w.poses[:, :3, 3], rtol=0, atol=1e-3)
+            assert states[s].frame_idx == want[s].frame_idx
+            assert results[s].pose_ok[1:n].all()
+
+
+def test_batched_ransac_pnp_on_card(dev):
+    """Five problems (one with four valid matches, one with none) against five unbatched calls."""
+    from tpuslam_torch.backend.pnp import gumbel_sample_indices, ransac_pnp, so3_exp
+
+    rng = np.random.default_rng(0)
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    X, uv, valid = [], [], []
+    for _ in range(5):
+        x = rng.uniform([-3, -2, 4], [3, 2, 12], size=(200, 3))
+        R = so3_exp(torch.from_numpy(rng.normal(size=3) * 0.3).float()).double().numpy()
+        pix = (x @ R.T + rng.normal(size=3) * 0.3) @ K.T
+        u = pix[:, :2] / pix[:, 2:] + rng.normal(size=(200, 2)) * 0.3
+        u[:40] = rng.uniform([0, 0], [640, 480], (40, 2))
+        X.append(x), uv.append(u), valid.append(rng.random(200) > 0.1)
+    valid[2][:] = False
+    valid[2][[3, 9, 17, 30]] = True
+    valid[4][:] = False
+    X, uv = (torch.from_numpy(np.stack(a)).float().to(dev) for a in (X, uv))
+    valid = torch.from_numpy(np.stack(valid)).to(dev)
+    Kt = torch.from_numpy(K).float().to(dev)
+    idx = gumbel_sample_indices(valid, 512, 6, torch.Generator(device=dev).manual_seed(1))
+    kw = dict(num_hypotheses=512, min_inliers=12, refine="gn", hyp_sweeps=6)
+    b = ransac_pnp(X, uv, valid, Kt, idx, **kw)
+    for v in range(5):
+        s = ransac_pnp(X[v], uv[v], valid[v], Kt, idx[v], **kw)
+        assert bool(b.success[v]) == bool(s.success) and int(b.num_inliers[v]) == int(s.num_inliers)
+        assert torch.equal(b.inliers[v], s.inliers)
+        torch.testing.assert_close(b.R[v], s.R, rtol=0, atol=1e-4)
+        torch.testing.assert_close(b.t[v], s.t, rtol=0, atol=1e-3)
+    assert b.success.tolist() == [True, True, False, True, False]
+
+
+def _motion_pnp_2d(K, R, t, X, uv, valid, iters, min_inliers, schedule, thr=2.0):
+    """``motion_pnp`` as it was before the problem axis, written with 2-D products: the tracker's call."""
+    from tpuslam_torch.backend.pnp import _apply_step, _gn_step, _gn_system, reprojection_errors
+
+    vf = valid.float()
+    fx, fy = K[0, 0], K[1, 1]
+    for i in range(iters):
+        Xc = X @ R.T + t
+        z = Xc[:, 2]
+        behind = z <= 1e-6
+        inv_z = 1.0 / torch.where(behind, 1.0, z)
+        r = ((Xc * inv_z[:, None]) @ K.T)[:, :2] - uv
+        err = torch.linalg.vector_norm(r, dim=-1)
+        delta = schedule[min(i, len(schedule) - 1)]
+        w = vf * torch.where(~behind, torch.clamp_max(delta / torch.clamp_min(err, 1e-9), 1.0), 0.0)
+        R, t = _apply_step(R, t, _gn_step(_gn_system(Xc, fx, fy, inv_z), w, r))
+    err, z = reprojection_errors(K, R, t, X, uv)
+    inliers = (err < thr) & (z > 0) & valid
+    count = inliers.sum(dtype=torch.int32)
+    ok = (count >= min_inliers) & torch.isfinite(R).all() & torch.isfinite(t).all()
+    return (torch.where(ok, R, torch.eye(3, device=R.device)), torch.where(ok, t, 0.0), inliers & ok,
+            torch.where(ok, count, 0), ok)
+
+
+def _ransac_pnp_2d(X, uv, valid, K, idx, min_inliers, lo_rounds, thr=2.0):
+    """``ransac_pnp`` (Gauss-Newton LO, 6 hypothesis sweeps) as it was before the problem axis."""
+    from tpuslam_torch.backend.pnp import refine_pnp_gn, reprojection_errors, solve_pnp_dlt
+
+    xn = torch.stack([(uv[:, 0] - K[0, 2]) / K[0, 0], (uv[:, 1] - K[1, 2]) / K[1, 1]], dim=-1)
+    R_h, t_h = solve_pnp_dlt(X[idx], xn[idx], sweeps=6)
+    err, z = reprojection_errors(K, R_h, t_h, X, uv)
+    inlier_mat = (err < thr) & (z > 0) & valid[None, :]
+    counts = inlier_mat.sum(dim=-1, dtype=torch.int32)
+    best = torch.argmax(counts).reshape(1)
+    R, t, inl, n = (a.index_select(0, best)[0] for a in (R_h, t_h, inlier_mat, counts))
+    for _ in range(lo_rounds):
+        R_r, t_r = refine_pnp_gn(K, R, t, X, uv, inl.float(), iters=3)
+        err_r, z_r = reprojection_errors(K, R_r, t_r, X, uv)
+        inl_r = (err_r < thr) & (z_r > 0) & valid
+        n_r = inl_r.sum(dtype=torch.int32)
+        better = n_r >= n
+        R, t, inl, n = (torch.where(better, a, b) for a, b in ((R_r, R), (t_r, t), (inl_r, inl), (n_r, n)))
+    ok = (n >= min_inliers) & (valid.sum(dtype=torch.int32) >= idx.shape[1])
+    return torch.where(ok, R, torch.eye(3, device=R.device)), torch.where(ok, t, 0.0), inl & ok, \
+        torch.where(ok, n, 0), ok
+
+
+def test_unbatched_pnp_keeps_its_2d_products_on_card(dev):
+    """On the card an (M,) call runs without the problem axis: the tracker's ``motion_pnp`` and
+    ``ransac_pnp`` give the bits of their 2-D formulation (``torch.equal`` on every field)."""
+    from tpuslam_torch.backend.pnp import gumbel_sample_indices, motion_pnp, ransac_pnp, so3_exp
+
+    rng = np.random.default_rng(5)
+    K = torch.tensor([[718.856, 0, 607.1928], [0, 718.856, 185.2157], [0, 0, 1]], device=dev)
+    for M in (30, 1024):
+        x = rng.uniform([-8, -3, 4], [8, 3, 40], size=(M, 3))
+        R = so3_exp(torch.from_numpy(rng.normal(size=3) * 0.1).float()).double().numpy()
+        t = rng.normal(size=3) * 0.5
+        pix = (x @ R.T + t) @ K.cpu().double().numpy().T
+        u = pix[:, :2] / pix[:, 2:] + rng.normal(size=(M, 2)) * 0.5
+        u[: M // 5] += rng.normal(size=(M // 5, 2)) * 40
+        X, uv = (torch.from_numpy(a).float().to(dev) for a in (x, u))
+        valid = torch.from_numpy(rng.random(M) > 0.1).to(dev)
+        R0 = so3_exp(torch.from_numpy(rng.normal(size=3) * 0.02).float()).to(dev) @ torch.from_numpy(R).float().to(dev)
+        t0 = torch.from_numpy(t).float().to(dev) + 0.05
+        sched = (32.0, 16.0, 8.0, 4.0, 2.0, 2.0)
+        got = motion_pnp(K, R0, t0, X, uv, valid, iters=6, min_inliers=12, huber_schedule=sched)
+        want = _motion_pnp_2d(K, R0, t0, X, uv, valid, 6, 12, sched)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), M
+        idx = gumbel_sample_indices(valid.cpu(), 256, 6, torch.Generator().manual_seed(2)).to(dev)
+        got = ransac_pnp(X, uv, valid, K, idx, num_hypotheses=256, min_inliers=12, solver_sweeps=8,
+                         hyp_sweeps=6, lo_rounds=1, refine="gn")
+        want = _ransac_pnp_2d(X, uv, valid, K, idx, 12, 1)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), M
+        assert bool(got.success), M

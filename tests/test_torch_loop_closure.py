@@ -204,8 +204,10 @@ def test_detect_and_add_keyframe_match_reference(cfg_dir, features):
     assert g["success"] and g["matched_keyframe_id"] == 0
 
 
-@pytest.mark.parametrize("budget", [2, 1])
-def test_relocalize_matches_reference(budget, cfg_dir, features):
+@pytest.fixture(scope="module")
+def reloc_db(cfg_dir, features):
+    """The reference's and the port's LoopClosure at the defaults and the reference's database of the
+    ten frames at poses along a line, shared by the relocalization budgets."""
     desc, xy, kv, mp = features
     B = len(desc)
     jl, tl = pair(cfg_dir)
@@ -216,6 +218,14 @@ def test_relocalize_matches_reference(budget, cfg_dir, features):
     jdb, _ = jl.process_chunk(jl.new_db(512), jnp.asarray(fids), jnp.ones(B, bool), jnp.asarray(desc), jnp.asarray(xy),
                               jnp.asarray(kv), jnp.asarray(mp), jnp.asarray(kv), jnp.asarray(LOOP_K), keys,
                               poses=jnp.asarray(poses))
+    return jl, tl, jdb, poses
+
+
+@pytest.mark.parametrize("budget", [2, 1])
+def test_relocalize_matches_reference(budget, reloc_db, features):
+    desc, xy, kv, mp = features
+    B = len(desc)
+    jl, tl, jdb, poses = reloc_db
     tdb = keyframe_db_from_numpy(jdb)
     qdesc, qxy = desc.copy(), xy.copy()
     rng = np.random.default_rng(1)

@@ -1,29 +1,33 @@
 """Full SLAM with loop closure: tpuslam_torch's SlamSystem.run_sequence against tpuslam's on the CPU.
 
-Two runs of each package (two compiles of the reference's sequence
+One run of each package (one compile of the reference's sequence
 program), the port replaying the reference's draws in all four streams:
 ``draw_fn`` (the two-view ranks, ``test_torch_system.py``), ``lc_draw_fn``
 (verification: ``split(key2, B)[b]``) and ``reloc_draw_fn``
 (relocalization: ``split(fold_in(key2, 777), B)[b]``, split once more into
 the five-point and the PnP key), where chunk c's ``key2`` is
-``split(fold_in(PRNGKey(0), c))[1]``.  Both at K 512, 256 two-view
-hypotheses, batch 5 and ``ba_iterations`` 0 (BA runs, writes back and folds
-but moves nothing), so the wiring is held at the VO slice's tolerances.
+``split(fold_in(PRNGKey(0), c))[1]``.  At K 512, 256 two-view hypotheses,
+batch 5 and ``ba_iterations`` 0 (BA runs, writes back and folds but moves
+nothing), so the wiring is held at the VO slice's tolerances.
 
-* ``loop``: the out-and-back 19 frames (fixtures 0..9 then 8..0) with the
-  tree vocabulary and ``configs/loop_closure.yml`` as they stand: ``loops``
-  identical in ``frame_id`` and ``matched_keyframe_id``, ``num_inliers``
-  within ±2, ``pose_graph_applied`` the same, the database's integer fields
-  identical, and the corrected trajectory's rotations within 1e-4 and
-  positions within 1e-3.
-* ``blind``: the ten fixtures with frames 4 and 5 replaced by noise, the
-  reference's relocalization scenario (``test_system.py``: the flat
-  vocabulary, ratio test 0.8, inliers at 2 px), the pose graph off:
-  ``reloc_ok`` identical (frame 6 is rescued).
+The run: the out-and-back 19 frames (fixtures 0..9 then 8..0) with frames
+4 and 5 replaced by noise, the tree vocabulary, ``configs/loop_closure.yml``
+and the reference's relocalization settings (``test_system.py``: ratio test
+0.8, inliers at 2 px), the pose graph on.  Both cases hold ``pose_ok``,
+``num_matches`` and ``reloc_ok`` identical, ``loops`` identical in
+``frame_id`` and ``matched_keyframe_id`` with ``num_inliers`` within ±2,
+``pose_graph_applied`` the same, the database's integer fields identical,
+and the corrected trajectory's rotations within 1e-4 and positions within
+1e-3; then
 
-A run of the port alone in PnP mode on the blinded frames rescues a frame
-and keeps its map in the trajectory's world frame (the reference's own
-check, ``test_system.py``).
+* ``loop``: loops fire late against early keyframes and the pose graph
+  folds them in;
+* ``blind``: relocalization rescues frame 6, the first clean frame after
+  the blind span, and no other.
+
+A run of the port alone in PnP mode on the blinded fixtures rescues a
+frame and keeps its map in the trajectory's world frame (the reference's
+own check, ``test_system.py``).
 """
 
 import dataclasses
@@ -84,35 +88,27 @@ def blinded(frames):
     return out
 
 
-CASES = {
-    "loop": dict(vocabulary="vocabulary_tree.npz", config=_small, kw=dict(ba_iterations=0)),
-    "blind": dict(vocabulary="vocabulary.npz", config=_blind_config,
-                  kw=dict(ba_iterations=0, enable_pose_graph=False)),
-}
-
-
-@pytest.fixture(scope="module", params=list(CASES))
-def runs(request, data_dir, fixture_frames):
-    case = CASES[request.param]
-    frames = (fixture_frames[list(range(10)) + list(range(8, -1, -1))] if request.param == "loop"
-              else blinded(fixture_frames))
+@pytest.fixture(scope="module")
+def runs(data_dir, fixture_frames):
+    frames = blinded(fixture_frames[list(range(10)) + list(range(8, -1, -1))])
     cfg_dir = data_dir.parent.parent / "configs"
-    voc = cfg_dir / case["vocabulary"]
+    voc = cfg_dir / "vocabulary_tree.npz"
     jsys = JSystem(JCamera.from_yaml(cfg_dir / "camera.yml"),
-                   case["config"](JSlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH)), vocabulary=voc, **case["kw"])
+                   _blind_config(JSlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH)), vocabulary=voc,
+                   ba_iterations=0)
     want = sequence_result_to_numpy(jsys.run_sequence(frames, seed=0))
     tsys = TSystem(TCamera.from_yaml(cfg_dir / "camera.yml"),
-                   case["config"](TSlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH)), vocabulary=voc,
+                   _blind_config(TSlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH)), vocabulary=voc,
                    device="cpu", draw_fn=draw_fn(False), lc_draw_fn=lc_draws, reloc_draw_fn=reloc_draws,
-                   **case["kw"])
+                   ba_iterations=0)
     got = sequence_result_to_numpy(tsys.run_sequence(frames, seed=0))
-    return request.param, want, got
+    return want, got
 
 
-def test_loop_closure_run_matches_reference(runs):
-    case, want, got = runs
-    n = 19 if case == "loop" else 10
-    assert got["poses"].shape == (n, 4, 4)
+@pytest.mark.parametrize("case", ["loop", "blind"])
+def test_loop_closure_run_matches_reference(case, runs):
+    want, got = runs
+    assert got["poses"].shape == (19, 4, 4)
     np.testing.assert_array_equal(got["pose_ok"], want["pose_ok"])
     np.testing.assert_array_equal(got["num_matches"], want["num_matches"])
     np.testing.assert_array_equal(got["reloc_ok"], want["reloc_ok"])
@@ -128,8 +124,8 @@ def test_loop_closure_run_matches_reference(runs):
     if case == "loop":  # loops fire late against early keyframes, and the pose graph folds them in
         assert len(got["loops"]) >= 1 and got["pose_graph_applied"]
         assert got["loops"][-1]["frame_id"] >= 12 and got["loops"][-1]["matched_keyframe_id"] <= 6
-    else:  # the first clean frame after the blind span is rescued
-        assert got["reloc_ok"][6] and not got["loops"]
+    else:  # the first clean frame after the blind span is rescued, and only it
+        assert np.flatnonzero(got["reloc_ok"]).tolist() == [6]
 
 
 def test_pnp_relocalization_keeps_the_map_in_the_trajectory_frame(data_dir, fixture_frames):

@@ -10,7 +10,7 @@ is tested against ``tpuslam``) on a CPU-only machine.
 
 Float32 matrix products must be true float32: the reference pins
 ``precision="highest"`` on every solver product, and several integer-valued
-products here (bit-plane Hamming, int8 moments, BRIEF one-hot dots) are
+products here (bit-plane Hamming, int8 moments, BRIEF own-bin dots) are
 exact only without TF32.  Importing the package turns TF32 off.
 """
 

@@ -19,6 +19,11 @@ mask in one transfer and verifies only the candidate frames (at most
 it does there); the relocalization caller reads ``need`` (see
 ``model/system.py``), and ``_relocalize_impl`` itself does not sync.
 
+Verification and relocalization solve their V candidates together, as the
+reference vmaps them: one batched ``ransac_pnp`` over the candidate axis
+(and, in relocalization, one batched ``motion_pnp`` polish), each candidate
+with its own samples.
+
 Random draws are injected.  Verification takes a ``PnpSampler``:
 ``sampler(positions, valid, H)`` returns the (V, H, 6) RANSAC-PnP sample
 indices of the chunk frames at ``positions`` given their (V, M) usable
@@ -260,16 +265,12 @@ class LoopClosure:
         return pts2d, pts3d, usable, enough
 
     def _ransac(self, pts3d, pts2d, valid, K, samples):
-        """RANSAC DLT-PnP of each of the V problems → (success (V,), T (V, 4, 4), num_inliers (V,))."""
+        """One batched RANSAC DLT-PnP of the V problems → (success (V,), T (V, 4, 4), num_inliers (V,))."""
         cfg = self.config
-        res = [
-            ransac_pnp(pts3d[v], pts2d[v], valid[v], K, samples[v], num_hypotheses=samples.shape[1],
-                       sample_size=6, reproj_threshold=cfg.ransac_reprojection_threshold,
-                       min_inliers=cfg.min_inliers_for_pnp, hyp_sweeps=6, lo_rounds=2, refine="gn")
-            for v in range(pts3d.shape[0])
-        ]
-        return (torch.stack([r.success for r in res]), _rt(torch.stack([r.R for r in res]),
-                torch.stack([r.t for r in res])), torch.stack([r.num_inliers for r in res]))
+        r = ransac_pnp(pts3d, pts2d, valid, K, samples, num_hypotheses=samples.shape[1], sample_size=6,
+                       reproj_threshold=cfg.ransac_reprojection_threshold, min_inliers=cfg.min_inliers_for_pnp,
+                       hyp_sweeps=6, lo_rounds=2, refine="gn")
+        return r.success, _rt(r.R, r.t), r.num_inliers
 
     def _verify_impl(self, descriptors, xy, kp_valid, cand_desc, cand_xy, cand_kp_valid, cand_mp, cand_mp_valid,
                      candidate_ok, K, positions, sampler: PnpSampler, ratio_threshold=None):
@@ -317,13 +318,10 @@ class LoopClosure:
         T = _rt(res.R, res.t * torch.where(finite, scale, 1.0)[:, None])
         # Huber-IRLS Gauss-Newton over all matched stored points, seeded by the scaled essential pose
         gn_valid = match.valid & mp_ok & (z_stored > 1e-3)
-        polished = []
-        for v in range(T.shape[0]):
-            gn = motion_pnp(K, T[v, :3, :3], T[v, :3, 3], pts3d[v], pts2d[v], gn_valid[v], iters=6,
-                            min_inliers=cfg.min_inliers_for_pnp, huber_schedule=(32.0, 16.0, 8.0, 4.0, 2.0, 2.0),
-                            reproj_threshold=cfg.ransac_reprojection_threshold)
-            polished.append(torch.where(gn.success, _rt(gn.R, gn.t), T[v]))
-        T = torch.stack(polished)
+        gn = motion_pnp(K, T[:, :3, :3], T[:, :3, 3], pts3d, pts2d, gn_valid, iters=6,
+                        min_inliers=cfg.min_inliers_for_pnp, huber_schedule=(32.0, 16.0, 8.0, 4.0, 2.0, 2.0),
+                        reproj_threshold=cfg.ransac_reprojection_threshold)
+        T = torch.where(gn.success[:, None, None], _rt(gn.R, gn.t), T)
         use_pnp = ok_pnp & (~ok | (ni_pnp.float() >= 0.75 * res.num_inliers.float()))
         return (ok_pnp | ok, torch.where(use_pnp[:, None, None], T_pnp, T),
                 torch.where(use_pnp, ni_pnp, res.num_inliers).to(torch.int32))

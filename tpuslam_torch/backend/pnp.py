@@ -11,7 +11,19 @@ kept: the DLT solution maps *row-major* into P (as its rows are built),
 and the translation is rescaled by ``s = ‖R_raw‖_F / √3`` (the mean
 singular value) so it has metric scale.
 
-Sampling: ``ransac_pnp`` takes its (H, 6) sample indices, or draws them
+Both solvers take a leading problem axis V, the reference's ``jax.vmap``
+over independent problems (loop-verification and relocalization
+candidates): ``ransac_pnp`` solves all V·H hypotheses at once and
+``motion_pnp`` all V descents; every reduction, argmax and gate is per
+problem.  One body serves both shapes.  On the card an unbatched (M,)
+call runs it without the leading axis, so it computes the products it
+computed before the axis existed.  On the CPU an unbatched call is the
+batch of one (``_cpu_batch_of_one``): torch's CPU ``mm`` and ``bmm`` round
+small products (3×3 rotations, a few dozen 3-vectors) differently at the
+ulp, and as a batch of one the call equals a batched call problem by
+problem, bit for bit.
+
+Sampling: ``ransac_pnp`` takes its ([V,] H, 6) sample indices, or draws them
 as the reference does — Gumbel noise over the valid matches and an
 iterated argmax, i.e. six distinct valid matches a hypothesis — from an
 explicit ``torch.Generator``.  With fewer than six valid matches the argmax
@@ -31,11 +43,23 @@ _SQRT3 = 3.0 ** 0.5
 
 
 class PnPResult(NamedTuple):
-    R: torch.Tensor  # (3, 3)
-    t: torch.Tensor  # (3,)
-    inliers: torch.Tensor  # (M,) bool
-    num_inliers: torch.Tensor  # () int32
-    success: torch.Tensor  # () bool
+    """One problem's pose, or V of them along a leading axis."""
+
+    R: torch.Tensor  # ([V,] 3, 3)
+    t: torch.Tensor  # ([V,] 3)
+    inliers: torch.Tensor  # ([V,] M) bool
+    num_inliers: torch.Tensor  # ([V],) int32
+    success: torch.Tensor  # ([V],) bool
+
+
+def _cpu_batch_of_one(points3d: torch.Tensor) -> bool:
+    """An unbatched call on the CPU, which runs as the batch of one (see the module docstring)."""
+    return points3d.dim() == 2 and points3d.device.type == "cpu"
+
+
+def _first(res: PnPResult) -> PnPResult:
+    """The one problem of a batch of one."""
+    return PnPResult(*(f[0] for f in res))
 
 
 def _dlt_rows(points3d: torch.Tensor, points2d: torch.Tensor) -> torch.Tensor:
@@ -156,11 +180,11 @@ def refine_pnp_gn(
 
 def motion_pnp(
     K: torch.Tensor,
-    R0: torch.Tensor,  # (3, 3) world→cam seed
-    t0: torch.Tensor,  # (3,)
-    points3d: torch.Tensor,  # (M, 3) world
-    points2d: torch.Tensor,  # (M, 2) pixels
-    valid: torch.Tensor,  # (M,) bool
+    R0: torch.Tensor,  # ([V,] 3, 3) world→cam seed
+    t0: torch.Tensor,  # ([V,] 3)
+    points3d: torch.Tensor,  # ([V,] M, 3) world
+    points2d: torch.Tensor,  # ([V,] M, 2) pixels
+    valid: torch.Tensor,  # ([V,] M) bool
     *,
     iters: int = 4,
     reproj_threshold: float = 2.0,
@@ -172,8 +196,13 @@ def motion_pnp(
     ``iters`` rounds, each one residual/Jacobian pass over the points and a
     6×6 solve, the Huber width annealed along ``huber_schedule``; then the
     inliers at ``reproj_threshold`` and z > 0.  Success needs
-    ``min_inliers`` and a finite pose; failure returns the identity.
+    ``min_inliers`` and a finite pose, each problem its own; failure
+    returns the identity.
     """
+    if _cpu_batch_of_one(points3d):
+        return _first(motion_pnp(K, R0[None], t0[None], points3d[None], points2d[None], valid[None], iters=iters,
+                                 reproj_threshold=reproj_threshold, min_inliers=min_inliers,
+                                 huber_schedule=huber_schedule))
     X = points3d.float()
     uv = points2d.float()
     Kf = K.float()
@@ -182,12 +211,12 @@ def motion_pnp(
     fx, fy = Kf[0, 0], Kf[1, 1]
     for i in range(iters):
         delta = huber_schedule[min(i, len(huber_schedule) - 1)]
-        Xc = X @ R.T + t
-        z = Xc[:, 2]
+        Xc = torch.matmul(X, R.transpose(-1, -2)) + t[..., None, :]
+        z = Xc[..., 2]
         behind = z <= 1e-6
         inv_z = 1.0 / torch.where(behind, 1.0, z)
-        pix = (Xc * inv_z[:, None]) @ Kf.T
-        r = pix[:, :2] - uv
+        pix = torch.matmul(Xc * inv_z[..., None], Kf.T)
+        r = pix[..., :2] - uv
         err = torch.linalg.vector_norm(r, dim=-1)
         # Huber weight: 1 inside the width, δ/|r| outside; cheirality and validity zero the rest.
         w = vf * torch.where(~behind, torch.clamp_max(delta / torch.clamp_min(err, 1e-9), 1.0), 0.0)
@@ -195,13 +224,13 @@ def motion_pnp(
 
     err, z = reprojection_errors(Kf, R, t, X, uv)
     inliers = (err < reproj_threshold) & (z > 0) & valid
-    count = inliers.sum(dtype=torch.int32)
-    finite = torch.isfinite(R).all() & torch.isfinite(t).all()
+    count = inliers.sum(dim=-1, dtype=torch.int32)
+    finite = torch.isfinite(R).all(dim=(-2, -1)) & torch.isfinite(t).all(dim=-1)
     success = (count >= min_inliers) & finite
     return PnPResult(
-        R=torch.where(success, R, torch.eye(3, device=R.device)),
-        t=torch.where(success, t, 0.0),
-        inliers=inliers & success,
+        R=torch.where(success[..., None, None], R, torch.eye(3, device=R.device)),
+        t=torch.where(success[..., None], t, 0.0),
+        inliers=inliers & success[..., None],
         num_inliers=torch.where(success, count, 0),
         success=success,
     )
@@ -227,9 +256,22 @@ def gumbel_top_indices(u: torch.Tensor, valid: torch.Tensor, sample_size: int) -
 def gumbel_sample_indices(
     valid: torch.Tensor, num_hypotheses: int, sample_size: int, generator: torch.Generator | None
 ) -> torch.Tensor:
-    """(H, S) indices: S distinct valid matches a hypothesis, from ``generator``'s noise on ``valid``'s device."""
-    u = torch.rand((num_hypotheses, valid.shape[0]), generator=generator, device=valid.device)
+    """(..., H, S) indices for (..., M) ``valid``: S distinct valid matches a hypothesis, from
+    ``generator``'s noise on ``valid``'s device."""
+    u = torch.rand((*valid.shape[:-1], num_hypotheses, valid.shape[-1]), generator=generator, device=valid.device)
     return gumbel_top_indices(u, valid, sample_size)
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx, :]: ([V,] M, C) rows at ([V,] H, S) indices → ([V,] H, S, C)."""
+    flat = torch.take_along_dim(x, idx.flatten(-2)[..., None], dim=-2)
+    return flat.unflatten(-2, idx.shape[-2:])
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx, ...] for ([V,] H, ...) ``x`` and a ([V,] 1) device index: no host sync."""
+    d = idx.dim() - 1
+    return torch.take_along_dim(x, idx.reshape(*idx.shape, *(1,) * (x.dim() - d - 1)), dim=d).squeeze(d)
 
 
 def ransac_pnp(
@@ -249,38 +291,49 @@ def ransac_pnp(
     lo_rounds: int = 2,
     refine: str = "dlt",
 ) -> PnPResult:
-    """Batched-RANSAC DLT PnP over (M,) correspondences.
+    """Batched-RANSAC DLT PnP over ([V,] M) correspondences.
 
-    ``points3d``: (M, 3) world; ``points2d``: (M, 2) pixels; ``valid``:
-    (M,) bool; ``K``: (3, 3).  ``sample_idx``: optional (H, S) match
-    indices, else drawn from ``generator``.  ``hyp_sweeps`` (default
-    ``solver_sweeps``) bounds the hypotheses' Jacobi sweeps only.
-    ``refine``: the LO refit, ``"dlt"`` (weighted DLT) or ``"gn"``
-    (Gauss-Newton on the pixel residual); a refit is kept when it has at
-    least as many inliers.
+    ``points3d``: ([V,] M, 3) world; ``points2d``: ([V,] M, 2) pixels;
+    ``valid``: ([V,] M) bool; ``K``: (3, 3), shared.  ``sample_idx``:
+    optional ([V,] H, S) match indices, else drawn from ``generator``.
+    ``hyp_sweeps`` (default ``solver_sweeps``) bounds the hypotheses'
+    Jacobi sweeps only.  ``refine``: the LO refit, ``"dlt"`` (weighted DLT)
+    or ``"gn"`` (Gauss-Newton on the pixel residual); a refit is kept when
+    it has at least as many inliers.  With a leading V every problem is
+    solved as it would be alone, and the result has a leading V.
     """
-    X = points3d.float()
+    if _cpu_batch_of_one(points3d):
+        return _first(ransac_pnp(
+            points3d[None], points2d[None], valid[None], K, None if sample_idx is None else sample_idx[None],
+            generator, num_hypotheses=num_hypotheses, sample_size=sample_size, reproj_threshold=reproj_threshold,
+            min_inliers=min_inliers, solver_sweeps=solver_sweeps, hyp_sweeps=hyp_sweeps, lo_rounds=lo_rounds,
+            refine=refine,
+        ))
+    X = points3d.float()  # ([V,] M, 3)
     uv = points2d.float()
     Kf = K.float()
     fx, fy = Kf[0, 0], Kf[1, 1]
     cx, cy = Kf[0, 2], Kf[1, 2]
-    xn = torch.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy], dim=-1)
+    xn = torch.stack([(uv[..., 0] - cx) / fx, (uv[..., 1] - cy) / fy], dim=-1)
 
     if sample_idx is None:
         sample_idx = gumbel_sample_indices(valid, num_hypotheses, sample_size, generator)
-    sample_idx = sample_idx.to(device=X.device, dtype=torch.int64)
+    sample_idx = sample_idx.to(device=X.device, dtype=torch.int64)  # ([V,] H, S)
     R_h, t_h = solve_pnp_dlt(
-        X[sample_idx], xn[sample_idx], sweeps=solver_sweeps if hyp_sweeps is None else hyp_sweeps
-    )  # (H, 3, 3), (H, 3)
+        _gather_rows(X, sample_idx), _gather_rows(xn, sample_idx),
+        sweeps=solver_sweeps if hyp_sweeps is None else hyp_sweeps,
+    )  # ([V,] H, 3, 3), ([V,] H, 3)
 
-    err, z = reprojection_errors(Kf, R_h, t_h, X, uv)  # (H, M)
-    inlier_mat = (err < reproj_threshold) & (z > 0) & valid[None, :]
+    # the hypotheses' axis: an unbatched (M, 3) broadcasts against (H, 3, 3) as it is
+    X_h, uv_h = (X, uv) if X.dim() == 2 else (X[:, None], uv[:, None])
+    err, z = reprojection_errors(Kf, R_h, t_h, X_h, uv_h)  # ([V,] H, M)
+    inlier_mat = (err < reproj_threshold) & (z > 0) & valid[..., None, :]
     counts = inlier_mat.sum(dim=-1, dtype=torch.int32)
-    best_h = torch.argmax(counts).reshape(1)  # an index tensor: no host sync on the card
-    R_best = R_h.index_select(0, best_h)[0]
-    t_best = t_h.index_select(0, best_h)[0]
-    inliers = inlier_mat.index_select(0, best_h)[0]
-    best_count = counts.index_select(0, best_h)[0]
+    best_h = torch.argmax(counts, dim=-1, keepdim=True)  # ([V,] 1), the first maximum; no host sync
+    R_best = _take(R_h, best_h)
+    t_best = _take(t_h, best_h)
+    inliers = _take(inlier_mat, best_h)
+    best_count = _take(counts, best_h)
     for _ in range(lo_rounds):
         w = inliers.float()
         if refine == "gn":
@@ -289,19 +342,19 @@ def ransac_pnp(
             R_ref, t_ref = solve_pnp_dlt(X, xn, weights=w, sweeps=solver_sweeps)
         err_r, z_r = reprojection_errors(Kf, R_ref, t_ref, X, uv)
         inl_r = (err_r < reproj_threshold) & (z_r > 0) & valid
-        cnt_r = inl_r.sum(dtype=torch.int32)
+        cnt_r = inl_r.sum(dim=-1, dtype=torch.int32)
         better = cnt_r >= best_count
-        R_best = torch.where(better, R_ref, R_best)
-        t_best = torch.where(better, t_ref, t_best)
-        inliers = torch.where(better, inl_r, inliers)
+        R_best = torch.where(better[..., None, None], R_ref, R_best)
+        t_best = torch.where(better[..., None], t_ref, t_best)
+        inliers = torch.where(better[..., None], inl_r, inliers)
         best_count = torch.where(better, cnt_r, best_count)
 
-    n_valid = valid.sum(dtype=torch.int32)
-    success = (best_count >= min_inliers) & (n_valid >= sample_idx.shape[1])
+    n_valid = valid.sum(dim=-1, dtype=torch.int32)
+    success = (best_count >= min_inliers) & (n_valid >= sample_idx.shape[-1])
     return PnPResult(
-        R=torch.where(success, R_best, torch.eye(3, device=X.device)),
-        t=torch.where(success, t_best, 0.0),
-        inliers=inliers & success,
+        R=torch.where(success[..., None, None], R_best, torch.eye(3, device=X.device)),
+        t=torch.where(success[..., None], t_best, 0.0),
+        inliers=inliers & success[..., None],
         num_inliers=torch.where(success, best_count, 0),
         success=success,
     )

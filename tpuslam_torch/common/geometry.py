@@ -56,8 +56,8 @@ def nullvec_jacobi(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
     schedule = _schedule_indices(n, A.device)
     for _ in range(sweeps):
         for ps, qs in schedule:
-            cp = A[..., ps]  # (..., m, G)
-            cq = A[..., qs]
+            cp = A.index_select(-1, ps)  # (..., m, G)
+            cq = A.index_select(-1, qs)
             app = torch.sum(cp * cp, dim=-2)  # (..., G)
             aqq = torch.sum(cq * cq, dim=-2)
             apq = torch.sum(cp * cq, dim=-2)
@@ -68,12 +68,12 @@ def nullvec_jacobi(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
             t = torch.where(apq.abs() < eps * (app + aqq + eps), 0.0, t)
             c = (1.0 / torch.sqrt(1.0 + t * t)).unsqueeze(-2)
             s = t.unsqueeze(-2) * c
-            A[..., ps] = c * cp - s * cq
-            A[..., qs] = s * cp + c * cq
-            vp = V[..., ps]
-            vq = V[..., qs]
-            V[..., ps] = c * vp - s * vq
-            V[..., qs] = s * vp + c * vq
+            A.index_copy_(-1, ps, c * cp - s * cq)
+            A.index_copy_(-1, qs, s * cp + c * cq)
+            vp = V.index_select(-1, ps)
+            vq = V.index_select(-1, qs)
+            V.index_copy_(-1, ps, c * vp - s * vq)
+            V.index_copy_(-1, qs, s * vp + c * vq)
     norms = torch.linalg.vector_norm(A, dim=-2)  # (..., n) singular values
     idx = torch.argmin(norms, dim=-1)
     return torch.take_along_dim(V, idx[..., None, None], dim=-1)[..., 0]

@@ -24,7 +24,7 @@
 //
 // Kernel 3 replaces tpuslam/kernels/brief_pallas.py::brief_own_bin_dots
 // (_own_bin_kernel).  Plain twin: tpuslam_torch/frontend/brief.py::
-// own_bin_dots_onehot.  out[b, k, :] = patches[b, k, :] . W[bin[b, k]], int32,
+// own_bin_dots_grouped.  out[b, k, :] = patches[b, k, :] . W[bin[b, k]], int32,
 // exact; keypoints whose bin is outside [0, bins) get zero rows.
 //   Bound on the H100 at the main path's shapes (16 x 1024 keypoints, S2p
 //   2304, 256 pairs, 16 bins): bytes — patches 37.7 MB + W 9.4 MB + output

@@ -4,10 +4,12 @@ Port of ``tpuslam/dist/mesh.py``.  The reference shards a stacked sequence
 axis over a ``jax.sharding.Mesh`` and runs one program; in PyTorch's idiom
 a mesh is an explicit list of ``torch.device``s and the placement rule
 replaces ``sequence_sharding``: sequence (or time shard) ``d`` runs on
-``devices[d % len(devices)]``.  Sequences that share a device run one after
-another, in order; per-sequence state never leaves its device, so no
-collective is needed.  Each device gets its own replica of the pipeline or
-system (``replica_on``); the results do not depend on the placement.
+``devices[d % len(devices)]``.  VO sequences that share a device run as one
+batched chunk step (``SlamPipeline.process_chunks``, the reference's
+``jax.vmap``); distinct devices run in turn.  Per-sequence state never
+leaves its device, so no collective is needed.  Each device gets its own
+replica of the pipeline or system (``replica_on``); the results do not
+depend on the placement.
 
 The reference runs the unbatched sequence program per device under
 ``shard_map`` so that its ``lax.cond``s stay real branches; here every
@@ -112,35 +114,46 @@ class _Replicas:
         return self._by_device[dev]
 
 
-def shard_vmapped_step(chunk_fn_on: Callable, devices: Sequence[torch.device | str]):
-    """Per-sequence chunk functions over the mesh.
+def _groups(n: int, devices: Sequence[torch.device | str]) -> dict[torch.device, list[int]]:
+    """Sequences ``0..n-1`` grouped by the device the placement rule gives them, in order."""
+    groups: dict[torch.device, list[int]] = {}
+    for s in range(n):
+        groups.setdefault(_canonical(device_for(devices, s)), []).append(s)
+    return groups
 
-    ``chunk_fn_on(d)`` is sequence d's ``f(frames (B, H, W), valid (B,),
-    state, seed) → (result, state)`` on ``devices[d % len(devices)]``.
-    Returns ``step(frames (S, B, H, W), valid (S, B), states, seeds) →
-    (results, states)``: lists by sequence, each result and state on its
-    sequence's device.  (The reference vmaps the S sequences into one
-    program; here they run in turn.)
+
+def shard_vmapped_step(batched_fn_on: Callable, devices: Sequence[torch.device | str]):
+    """A batched chunk function over the mesh.
+
+    ``batched_fn_on(d)`` is the batched chunk function of sequence d's
+    device, ``f(frames (n, B, H, W), valid (n, B), states, seeds) →
+    (results, states)`` over the n sequences placed there, lists by
+    sequence.  Returns ``step(frames (S, B, H, W), valid (S, B), states,
+    seeds) → (results, states)``: lists by sequence, each result and state
+    on its sequence's device.  The sequences that share a device run as one
+    call, as the reference vmaps them; distinct devices run in turn.
     """
 
     def step(frames, valid, states, seeds):
-        results, new_states = [], []
-        for s in range(len(frames)):
-            fn = chunk_fn_on(s)
-            result, state = fn(torch.as_tensor(frames[s]), torch.as_tensor(valid[s], dtype=torch.bool),
-                               states[s], int(seeds[s]))
-            results.append(result)
-            new_states.append(state)
+        frames = torch.as_tensor(frames)
+        valid = torch.as_tensor(valid, dtype=torch.bool)
+        results, new_states = [None] * len(frames), [None] * len(frames)
+        for seqs in _groups(len(frames), devices).values():
+            idx = torch.tensor(seqs)
+            res, st = batched_fn_on(seqs[0])(frames[idx], valid[idx], [states[s] for s in seqs],
+                                             [int(seeds[s]) for s in seqs])
+            for s, r, t in zip(seqs, res, st):
+                results[s], new_states[s] = r, t
         return results, new_states
 
     return step
 
 
 def shard_batched_pipeline(pipeline, devices: Sequence[torch.device | str]):
-    """The multi-sequence VO chunk step over ``devices`` (``SlamPipeline.process_chunk`` of each
-    sequence's replica); the states come from ``replica_on(pipeline, device).initial_state()``."""
+    """The multi-sequence VO chunk step over ``devices`` (``SlamPipeline.process_chunks`` of each
+    device's replica); the states come from ``replica_on(pipeline, device).initial_state()``."""
     replicas = _Replicas(pipeline, devices)
-    return shard_vmapped_step(lambda s: replicas(s).process_chunk, devices)
+    return shard_vmapped_step(lambda s: replicas(s).process_chunks, devices)
 
 
 def shard_sequence_program(system, devices: Sequence[torch.device | str]):

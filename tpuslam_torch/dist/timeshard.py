@@ -11,14 +11,18 @@ Layout (core segment length S, overlap V, both multiples of the batch):
     shard 0:  frames [0,            S + V)    core = local [0, S)
     shard d:  frames [d·S − V, (d+1)·S)       core = local [V, V + S)
 
-Shard d runs on ``devices[d % len(devices)]`` (``dist/mesh.py``); shards
-that share a device run in turn, in shard order.  Only one shard's window
-is on the host and its device at a time: ``stage_shard`` slices it from the
-frame array (a ``frames_to_memmap`` memmap reads only those rows) just
-before the shard runs.  Shard d draws from ``(seed + d, local frame)`` in
-the pipeline's streams; ``shard_hooks(d)`` may instead give it draw hooks
-(``draw_fn``, ``pnp_draw_fn``, ``lc_draw_fn``, ``reloc_draw_fn``, called
-with local frame ids, so the chunk is ``frame // B``).
+Shard d runs on ``devices[d % len(devices)]`` (``dist/mesh.py``).  In VO
+mode (``run_timesharded``) the shards that share a device run as one
+batched sequence (``SlamPipeline.process_chunks`` a chunk, the reference's
+``jax.vmap``), each batched chunk staged just before it runs; full SLAM
+(``run_timesharded_system``) runs them in turn, in shard order, one
+window (``stage_shard``) on the device at a time, as the reference runs
+one unbatched program per core.  Either way only the rows that run are
+read from the frame array (a ``frames_to_memmap`` memmap reads only
+those).  Shard d draws from ``(seed + d, local frame)`` in the pipeline's
+streams; ``shard_hooks(d)`` may instead give it draw hooks (``draw_fn``,
+``pnp_draw_fn``, ``lc_draw_fn``, ``reloc_draw_fn``, called with local frame
+ids, so the chunk is ``frame // B``).
 
 Inside a shard everything runs on local frame ids: the map, the keyframe
 DB, ``kf_enabled`` and the BA snapshots.  Only the reported loops, BA
@@ -39,7 +43,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from tpuslam_torch.dist.mesh import _Replicas
+from tpuslam_torch.dist.mesh import _groups, _Replicas
+from tpuslam_torch.model.slam import _stack_results
 
 _CROSS_STREAM = 0x27D4EB2F165667C5  # xor-ed into the seed of cross-segment verification's draws
 
@@ -87,20 +92,25 @@ def shard_frames_in_time(
     return shards, valid, S, V
 
 
+def _window_rows(frames, shards: Sequence[int], rows: np.ndarray, S: int, V: int, device):
+    """Local frames ``rows`` of each of ``shards``' windows: ``(frames (len(shards), len(rows), H, W)
+    uint8 on device, valid (len(shards), len(rows)) bool on the host)``.  Indices past the end clamp
+    to the last frame and are invalid, as ``shard_frames_in_time`` pads; only those rows are read."""
+    n = len(frames)
+    pos = np.stack([_shard_start(d, S, V) + rows for d in shards])
+    window = np.ascontiguousarray(np.asarray(frames)[np.minimum(pos, n - 1)])
+    return torch.from_numpy(window).to(device), torch.from_numpy(pos < n)
+
+
 def stage_shard(frames, d: int, S: int, V: int, batch: int, device: torch.device | str):
     """Shard ``d``'s window of ``frames`` (an array or memmap) on ``device``.
 
     Returns ``(chunks (C, B, H, W) uint8 on device, valid (C, B) bool on the
-    host)`` with C = (S + V) / B; indices past the end clamp to the last
-    frame and are invalid, as ``shard_frames_in_time`` pads.
+    host)`` with C = (S + V) / B.
     """
-    n = len(frames)
     L = S + V
-    s0 = _shard_start(d, S, V)
-    pos = np.arange(s0, s0 + L)
-    window = np.ascontiguousarray(np.asarray(frames)[np.minimum(pos, n - 1)])
-    chunks = torch.from_numpy(window).to(device).reshape(L // batch, batch, *window.shape[1:])
-    return chunks, torch.from_numpy(pos < n).reshape(L // batch, batch)
+    window, valid = _window_rows(frames, [d], np.arange(L), S, V, device)
+    return window[0].reshape(L // batch, batch, *window.shape[2:]), valid[0].reshape(L // batch, batch)
 
 
 def _core_ok(pose_ok: np.ndarray, S: int, V: int, n: int) -> np.ndarray:
@@ -149,25 +159,38 @@ def run_timesharded(
 ) -> dict:
     """Track one long sequence cut into ``n_shards`` time segments (VO), then stitch.
 
-    Each shard runs ``SlamPipeline.process_sequence`` over its S + V frames
-    with seed + d, on ``devices[d % len(devices)]`` (default: the
-    pipeline's own device).  Returns ``poses`` (N, 4, 4) stitched in shard
-    0's frame, ``pose_ok`` (N,) of the core frames, ``segments`` (D, S+V,
-    4, 4) raw per shard, ``segments_ok``, ``S``, ``V``.
+    Each shard runs over its S + V frames with seed + d, on ``devices[d %
+    len(devices)]`` (default: the pipeline's own device); the shards of one
+    device run as one batched sequence, one ``SlamPipeline.process_chunks``
+    a chunk, each shard with its own carry and draws (``shard_hooks(d)`` may
+    give shard d a ``draw_fn``).  Returns ``poses`` (N, 4, 4) stitched in
+    shard 0's frame, ``pose_ok`` (N,) of the core frames, ``segments`` (D,
+    S+V, 4, 4) raw per shard, ``segments_ok``, ``S``, ``V``.
     """
     B = pipeline.config.batch_size
     n = len(frames)
     S, V = plan_time_shards(n, n_shards, B, overlap)
+    devices = [pipeline.device] if devices is None else devices
     replicas = _placement(pipeline, devices)
-    poses, pose_ok = [], []
-    for d in range(n_shards):
-        pipe = replicas(d)
-        chunks, valid = stage_shard(frames, d, S, V, B, pipe.device)
-        with _shard_hooks(pipe, shard_hooks(d) if shard_hooks else None):
-            result, _ = pipe.process_sequence(chunks, valid, pipe.initial_state(), seed=seed + d)
-        poses.append(result.poses.reshape(-1, 4, 4).cpu().numpy())
-        pose_ok.append(result.pose_ok.reshape(-1).cpu().numpy())
-        del chunks
+    poses, pose_ok = [None] * n_shards, [None] * n_shards
+    for shards in _groups(n_shards, devices).values():
+        pipe = replicas(shards[0])
+        hooks = [shard_hooks(d) if shard_hooks else {} for d in shards]
+        for d, h in zip(shards, hooks):
+            extra = sorted(set(h) - {"draw_fn"})
+            if extra:
+                raise ValueError(f"shard {d}: run_timesharded takes a draw_fn hook only, not {extra}")
+        draw_fns = [h.get("draw_fn", pipe.draw_fn) for h in hooks]
+        states = [pipe.initial_state() for _ in shards]
+        out = []
+        for c in range((S + V) // B):  # one batched chunk of every shard, staged just before it runs
+            chunk, valid = _window_rows(frames, shards, c * B + np.arange(B), S, V, pipe.device)
+            results, states = pipe.process_chunks(chunk, valid, states, [seed + d for d in shards], draw_fns)
+            out.append(results)
+        for i, d in enumerate(shards):
+            result = _stack_results([r[i] for r in out])
+            poses[d] = result.poses.reshape(-1, 4, 4).cpu().numpy()
+            pose_ok[d] = result.pose_ok.reshape(-1).cpu().numpy()
     poses, pose_ok = np.stack(poses), np.stack(pose_ok)
     return {
         "poses": stitch_segments(poses, S, V, n, pose_ok=pose_ok),

@@ -5,8 +5,8 @@ quantised path are the twins of the hand-written kernels:
 
   * :func:`gaussian_blur_u8` — the blur half of kernel 1 (``csrc/frontend.cu``);
   * :func:`extract_brief_patches_i8` — kernel 2 (``csrc/brief.cu``);
-  * :func:`own_bin_dots_onehot` — kernel 3 (``csrc/brief.cu``), the one-hot
-    formulation of :func:`compute_brief_descriptors_quantized`.
+  * :func:`own_bin_dots_grouped` — kernel 3 (``csrc/brief.cu``), the own-bin
+    products of :func:`compute_brief_descriptors_quantized`, one bin at a time.
 
 The exact continuous-angle path (``BriefQuantizedBins: 0``) is plain
 torch on every device, as it is plain XLA in the reference package:
@@ -272,21 +272,29 @@ def quantize_angles(angles_deg: torch.Tensor, bins: int) -> torch.Tensor:
     return torch.clamp((frac * bins + 0.5).to(torch.int64) % bins, 0, bins - 1)
 
 
-def own_bin_dots_onehot(
+def own_bin_dots_grouped(
     patches_i8: torch.Tensor, bin_idx: torch.Tensor, bin_weights_3d: torch.Tensor
 ) -> torch.Tensor:
-    """(B, K, P) int32 ``patches[b, k] · W[bin[b, k]]`` (twin of kernel 3).
+    """(..., K, P) int32 ``patches[..., k] · W[bin[..., k]]`` (twin of kernel 3).
 
-    All bins' dots as one float32 product (exact: integer partial sums
-    below 2^24), then a one-hot select of each keypoint's own bin.
+    The keypoints grouped by bin (a stable sort, the group sizes read on the
+    host), then one float32 product a bin over its rows (exact: integer
+    partial sums below 2^24); keypoints whose bin is outside [0, bins) get
+    zero rows.
     """
     bins, s2p, p = bin_weights_3d.shape
-    w_flat = bin_weights_3d.permute(1, 0, 2).reshape(s2p, bins * p).to(torch.float32)
-    dots = torch.matmul(patches_i8.to(torch.float32), w_flat)  # (B, K, bins·P)
-    dots = dots.reshape(*patches_i8.shape[:-1], bins, p)
-    onehot = F.one_hot(bin_idx.to(torch.int64).clamp(0, bins - 1), bins).to(torch.float32)
-    onehot = onehot * ((bin_idx >= 0) & (bin_idx < bins))[..., None]
-    return (dots * onehot[..., None]).sum(dim=-2).to(torch.int32)
+    a = patches_i8.reshape(-1, s2p)
+    b = bin_idx.reshape(-1).to(torch.int64)
+    b = torch.where((b >= 0) & (b < bins), b, bins)
+    order = torch.sort(b, stable=True).indices
+    sizes = torch.bincount(b, minlength=bins + 1).tolist()
+    out = torch.zeros((a.shape[0], p), dtype=torch.int32, device=a.device)
+    start = 0
+    for j, n in enumerate(sizes[:bins]):
+        rows = order[start : start + n]
+        out[rows] = torch.matmul(a[rows].to(torch.float32), bin_weights_3d[j].to(torch.float32)).to(torch.int32)
+        start += n
+    return out.reshape(*patches_i8.shape[:-1], p)
 
 
 def brief_bits_from_dots(
@@ -345,7 +353,7 @@ def compute_brief_descriptors_quantized(
     h, w = images_blurred.shape[-2:]
     bin_idx = quantize_angles(angles_deg, bins)
     patches = extract_brief_patches_i8(images_blurred, kps.xy, patch_size)
-    own = own_bin_dots_onehot(patches, bin_idx, bin_weights_3d)
+    own = own_bin_dots_grouped(patches, bin_idx, bin_weights_3d)
     return brief_bits_from_dots(
         own, bin_idx, kps, pattern, rotated, num_pairs, patch_size, (h, w)
     )

@@ -69,22 +69,27 @@ def fast_response_and_mask(
     """(B, H, W) uint8 → (corner bool, score int32), each (B, H, W).
 
     Corners are masked to the 3-px interior; the score is the 16-neighbour
-    SAD with zeros outside the image.
+    SAD with zeros outside the image.  For a threshold ≥ 0 the tests run on
+    uint8 against bounds saturated to [0, 255] (a bound past the range can
+    never fire, clamped or not), so every pass reads one byte a pixel; a
+    negative threshold widens them to int16.
     """
     b, h, w = images.shape
     r = BORDER
-    padded = F.pad(images.to(torch.int32), (r, r, r, r))
+    work = images if threshold >= 0 else images.to(torch.int16)
+    padded = F.pad(work, (r, r, r, r))
 
     def win(dy: int, dx: int) -> torch.Tensor:
         return padded[:, r + dy : r + dy + h, r + dx : r + dx + w]
 
     center = win(0, 0)
-    lo = center - threshold
-    hi = center + threshold
-    bright_run = torch.zeros_like(center)
+    wide = center.to(torch.int16)
+    lo = (wide - threshold).clamp_(0, 255).to(work.dtype) if threshold >= 0 else wide - threshold
+    hi = (wide + threshold).clamp_(0, 255).to(work.dtype) if threshold >= 0 else wide + threshold
+    bright_run = torch.zeros_like(center)  # run lengths reach at most 31
     dark_run = torch.zeros_like(center)
     seg = torch.zeros(center.shape, dtype=torch.bool, device=images.device)
-    score = torch.zeros_like(center)
+    score = torch.zeros(center.shape, dtype=torch.int16, device=images.device)  # at most 16 · 255
     card = {}
     # A wrap-around run of length `contiguous` starts at index ≤ 15, so it
     # ends by index 14 + contiguous; later steps only re-detect it.
@@ -93,21 +98,23 @@ def fast_response_and_mask(
         nb = win(dy, dx)
         bright = nb > hi
         dark = nb < lo
-        bright_run = torch.where(bright, bright_run + 1, 0)
-        dark_run = torch.where(dark, dark_run + 1, 0)
-        seg = seg | (bright_run >= contiguous) | (dark_run >= contiguous)
+        bright_run.add_(1).mul_(bright)
+        dark_run.add_(1).mul_(dark)
+        if i + 1 >= contiguous:  # no run is that long before
+            seg |= bright_run >= contiguous
+            seg |= dark_run >= contiguous
         if i < 16:
-            score = score + (nb - center).abs()
+            score += torch.maximum(nb, center) - torch.minimum(nb, center)
             if i in (0, 4, 8, 12):
                 card[i] = (bright, dark)
-    nb4 = sum(card[c][0].to(torch.int32) for c in (0, 4, 8, 12))
-    nd4 = sum(card[c][1].to(torch.int32) for c in (0, 4, 8, 12))
+    nb4 = sum(card[c][0].to(torch.int8) for c in (0, 4, 8, 12))
+    nd4 = sum(card[c][1].to(torch.int8) for c in (0, 4, 8, 12))
     first_pair = card[0][0] | card[0][1] | card[8][0] | card[8][1]
     pretest = first_pair & ((nb4 >= 3) | (nd4 >= 3))
     row = torch.arange(h, device=images.device)[:, None]
     col = torch.arange(w, device=images.device)[None, :]
     in_border = (row >= r) & (row < h - r) & (col >= r) & (col < w - r)
-    return pretest & seg & in_border, score
+    return pretest & seg & in_border, score.to(torch.int32)
 
 
 def _packed_key(score: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ import torch
 
 from tpuslam_torch.frontend.brief import (
     extract_brief_patches_i8,
-    own_bin_dots_onehot,
+    own_bin_dots_grouped,
     padded_patch_len,
     patch_side,
     rotation_patch_half,
@@ -23,7 +23,7 @@ from tpuslam_torch.kernels.build import library
 
 # The plain twins (tpuslam_torch/frontend/brief.py).
 extract_brief_patches_reference = extract_brief_patches_i8
-brief_own_bin_dots_reference = own_bin_dots_onehot
+brief_own_bin_dots_reference = own_bin_dots_grouped
 
 
 def _require_cuda(t: torch.Tensor) -> None:

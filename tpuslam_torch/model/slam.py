@@ -10,6 +10,12 @@ with ``tracking="pnp"``, the per-frame tracker of ``model/tracking.py``
 against a persistent landmark map (the carry adds the map and the landmark
 association; ``process_chunk_pnp``, ``process_sequence_pnp``, ``run_pnp``).
 
+VO also runs S independent sequences as one batched chunk step
+(``process_chunks``), the reference's ``jax.vmap`` of its chunk program:
+the front end and the two-view stage run once over the S·B frames, the
+scale and the chaining per sequence along B; every sequence keeps its own
+carry, seed and draws.  ``process_chunk`` is its batch of one.
+
 Random draws depend only on (seed, global frame index), never on where
 chunk boundaries fall, in two streams: the two-view ranks and the RANSAC-PnP
 samples.  ``draw_fn(frame_idx, n_valid, H, S)`` and ``pnp_draw_fn(frame_idx,
@@ -130,11 +136,11 @@ def _nanmedian(x: torch.Tensor) -> torch.Tensor:
 
 
 def _prefix_products(T: torch.Tensor) -> torch.Tensor:
-    """(B, 4, 4) → cumulative products T_0, T_0·T_1, … (batched doubling scan)."""
+    """(..., B, 4, 4) → cumulative products T_0, T_0·T_1, … along B (batched doubling scan)."""
     out = T.clone()
     step = 1
-    while step < T.shape[0]:
-        out = torch.cat([out[:step], out[:-step] @ out[step:]], dim=0)
+    while step < T.shape[-3]:
+        out = torch.cat([out[..., :step, :, :], out[..., :-step, :, :] @ out[..., step:, :, :]], dim=-3)
         step *= 2
     return out
 
@@ -221,17 +227,21 @@ class SlamPipeline:
         )
 
     # --- random draws ----------------------------------------------------------
-    def _draws(self, fids: list[int], n_valid: torch.Tensor, seed: int, H: int) -> torch.Tensor:
-        """(B, H, S) two-view ranks, each frame's from (seed, its global index) alone."""
+    def _draws(self, fids: list[list[int]], n_valid: torch.Tensor, seeds: list[int], H: int,
+               draw_fns: list[DrawFn | None]) -> torch.Tensor:
+        """(S·B, H, S) two-view ranks, each frame's from its sequence's (seed, its global index) alone, or
+        from that sequence's draw function."""
         S = self.config.pose.sample_size
         out = []
-        for i, f in enumerate(fids):
-            if self.draw_fn is not None:
-                r = self.draw_fn(f, n_valid[i], H, S)
-            else:
-                self._generator.manual_seed(_stream_seed(seed, f))
-                r = draw_ranks(n_valid[i : i + 1], H, S, self._generator)[0]
-            out.append(torch.as_tensor(r, device=self.device).to(torch.int64))
+        for fs, seed, draw_fn in zip(fids, seeds, draw_fns):
+            for f in fs:
+                i = len(out)
+                if draw_fn is not None:
+                    r = draw_fn(f, n_valid[i], H, S)
+                else:
+                    self._generator.manual_seed(_stream_seed(seed, f))
+                    r = draw_ranks(n_valid[i : i + 1], H, S, self._generator)[0]
+                out.append(torch.as_tensor(r, device=self.device).to(torch.int64))
         return torch.stack(out)
 
     def _pnp_samples(self, fids: list[int], seed: int):
@@ -246,18 +256,27 @@ class SlamPipeline:
         return samples
 
     # --- the chunk program -----------------------------------------------------
-    def _two_view_stage(self, frames: torch.Tensor, frame_valid: torch.Tensor, state: VoState, seed: int):
-        """Undistort, detect, match consecutive pairs, RANSAC, triangulate."""
-        B = frames.shape[0]
+    def _two_view_stage(self, frames: torch.Tensor, frame_valid: torch.Tensor, states: list[VoState],
+                        seeds: list[int], draw_fns: list[DrawFn | None] | None = None):
+        """Undistort, detect, match consecutive pairs, RANSAC, triangulate: S sequences' (S, B, H, W)
+        frames, (S, B) mask, carries, seeds and draw functions (default the pipeline's) → the S·B
+        frames' outputs, sequence-major."""
+        n_seq, B = frames.shape[:2]
         mcfg = self.config.matcher
         pcfg = self.config.pose
-        und = undistort_batch(frames, self.undistort_idx, self.undistort_valid)
+        und = undistort_batch(frames.reshape(n_seq * B, *frames.shape[2:]), self.undistort_idx,
+                              self.undistort_valid)
         kps, desc = self.detector.detect_and_compute_batch(und)
 
-        # consecutive pairs: (prev, f0), (f0, f1), …, (f_{B-2}, f_{B-1})
-        kps_q = KeypointSet(*(torch.cat([p[None], c[:-1]]) for p, c in zip(state.prev_kps, kps)))
-        desc_q = torch.cat([state.prev_desc[None], desc[:-1]])
-        pair_ok = torch.cat([state.prev_exists[None], frame_valid[:-1]]) & frame_valid
+        # consecutive pairs of each sequence: (prev, f0), (f0, f1), …, (f_{B-2}, f_{B-1})
+        def pairs(prev: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
+            cur = cur.reshape(n_seq, B, *cur.shape[1:])
+            return torch.cat([prev[:, None], cur[:, :-1]], dim=1).reshape(n_seq * B, *cur.shape[2:])
+
+        kps_q = KeypointSet(*(pairs(torch.stack(p), c) for p, c in zip(zip(*(st.prev_kps for st in states)), kps)))
+        desc_q = pairs(torch.stack([st.prev_desc for st in states]), desc)
+        frame_valid = frame_valid.reshape(n_seq * B)
+        pair_ok = pairs(torch.stack([st.prev_exists for st in states]), frame_valid) & frame_valid
 
         match = match_descriptors(
             desc_q, desc, kps_q.valid, kps.valid, kps_q.xy, kps.xy,
@@ -278,8 +297,8 @@ class SlamPipeline:
         n_hyp = pcfg.num_hypotheses
         if self.tracking == "pnp" and pcfg.seed_num_hypotheses:
             n_hyp = min(pcfg.seed_num_hypotheses, pcfg.num_hypotheses)
-        fids = [state.frame_idx + i for i in range(B)]
-        draws = self._draws(fids, mvalid.sum(dim=-1), seed, n_hyp)
+        fids = [[st.frame_idx + i for i in range(B)] for st in states]
+        draws = self._draws(fids, mvalid.sum(dim=-1), seeds, n_hyp, draw_fns or [self.draw_fn] * n_seq)
         res = estimate_relative_pose(
             pts1, pts2, mvalid, self.K,
             draws=draws,
@@ -304,10 +323,10 @@ class SlamPipeline:
         )
         return kps, desc, match, mvalid, res, X_prev, X_cur, point_ok
 
-    def _to_device(self, frames, frame_valid) -> tuple[torch.Tensor, torch.Tensor, int]:
-        """Frames and mask on the pipeline's device, and the count of real frames."""
+    def _to_device(self, frames, frame_valid) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
+        """Frames and mask on the pipeline's device, and the count of real frames along the last axis."""
         frame_valid = torch.as_tensor(frame_valid, dtype=torch.bool)
-        n_real = int(frame_valid.sum())  # host knowledge when the mask comes from the host
+        n_real = frame_valid.sum(dim=-1).tolist()  # host knowledge when the mask comes from the host
         return torch.as_tensor(frames).to(self.device), frame_valid.to(self.device), n_real
 
     def _features(self, kps, desc, match, mvalid, points3d, point_ok) -> dict:
@@ -323,13 +342,31 @@ class SlamPipeline:
         self, frames: torch.Tensor, frame_valid: torch.Tensor, state: VoState, seed: int = 0
     ) -> tuple[ChunkResult, VoState]:
         """One VO chunk: (B, H, W) uint8 frames, (B,) bool validity → (result, new carry)."""
-        frames, frame_valid, n_real = self._to_device(frames, frame_valid)
-        two_view = self._two_view_stage(frames, frame_valid, state, seed)
-        return self._scale_and_chain(state, n_real, *two_view)
+        results, states = self.process_chunks(torch.as_tensor(frames)[None],
+                                              torch.as_tensor(frame_valid, dtype=torch.bool)[None], [state], [seed])
+        return results[0], states[0]
 
-    def _scale_and_chain(self, state: VoState, n_real: int, kps, desc, match, mvalid, res, X_prev, X_cur,
-                         point_ok) -> tuple[ChunkResult, VoState]:
-        """VO after the two-view stage: monocular scale from depth ratios, then the chained poses."""
+    def process_chunks(
+        self,
+        frames: torch.Tensor,  # (S, B, H, W) uint8
+        frame_valid: torch.Tensor,  # (S, B) bool, a host mask
+        states: list[VoState],
+        seeds: list[int],
+        draw_fns: list[DrawFn | None] | None = None,
+    ) -> tuple[list[ChunkResult], list[VoState]]:
+        """One VO chunk of each of S independent sequences as one batched step → (results, carries) by
+        sequence; sequence s as ``process_chunk`` of its frames, carry and seed would give it, drawing
+        from ``draw_fns[s]`` where given (default the pipeline's ``draw_fn``)."""
+        frames, frame_valid, n_real = self._to_device(frames, frame_valid)
+        two_view = self._two_view_stage(frames, frame_valid, states, seeds, draw_fns)
+        return self._scale_and_chain(states, n_real, *two_view)
+
+    def _scale_and_chain(self, states: list[VoState], n_real: list[int], kps, desc, match, mvalid, res, X_prev,
+                         X_cur, point_ok) -> tuple[list[ChunkResult], list[VoState]]:
+        """VO after the two-view stage of S sequences' S·B frames: monocular scale from depth ratios, then
+        the chained poses, each along its sequence's B frames."""
+        n_seq = len(states)
+        B = mvalid.shape[0] // n_seq
         z_prev = X_prev[..., 2]
         z_cur = X_cur[..., 2]
 
@@ -339,42 +376,50 @@ class SlamPipeline:
         t_idx = torch.clamp_min(match.train_idx, 0)
         d_query = _scatter_max(torch.where(point_ok, q_idx, K_cap), torch.where(point_ok, z_prev, 0.0), K_cap)
         d_cur = _scatter_max(torch.where(point_ok, t_idx, K_cap), torch.where(point_ok, z_cur, 0.0), K_cap)
-        d_ref = torch.cat(
-            [torch.where(state.prev_depth_valid, state.prev_depth, 0.0)[None], d_cur[:-1]]
-        )
+        d_prev = torch.stack([torch.where(st.prev_depth_valid, st.prev_depth, 0.0) for st in states])
+        d_cur = d_cur.reshape(n_seq, B, K_cap)
+        d_ref = torch.cat([d_prev[:, None], d_cur[:, :-1]], dim=1).reshape(n_seq * B, K_cap)
         common = (d_ref > 0) & (d_query > 0)
         ratio_kp = torch.where(common, d_ref / torch.clamp_min(d_query, 1e-9), float("nan"))
         n_common = common.sum(dim=1)
         ratios = torch.clamp(torch.nan_to_num(_nanmedian(ratio_kp), nan=1.0), 0.1, 10.0)
         ratios = torch.where((n_common >= 10) & res.success, ratios, 1.0)
-        cumscale = torch.cumprod(ratios, dim=0)
+        cumscale = torch.cumprod(ratios.reshape(n_seq, B), dim=1)  # (S, B)
 
         # Relative transforms with scaled baselines; failures → identity.
         eye4 = torch.eye(4, device=self.device)
-        T_rel = _invert_rt(res.R, res.t * cumscale[:, None])
+        T_rel = _invert_rt(res.R, res.t * cumscale.reshape(-1)[:, None])
         T_rel = torch.where(res.success[:, None, None], T_rel, eye4)
-        poses = state.pose[None] @ _prefix_products(T_rel)
+        pose0 = torch.stack([st.pose for st in states])
+        poses = pose0[:, None] @ _prefix_products(T_rel.reshape(n_seq, B, 4, 4))  # (S, B, 4, 4)
 
-        last = max(n_real - 1, 0)
-        carry_depth = d_cur[last] * cumscale[last]
-        ok_last = res.success[last]
-        new_state = VoState(
-            prev_kps=KeypointSet(*(a[last] for a in kps)),
-            prev_desc=desc[last],
-            prev_exists=state.prev_exists | (n_real > 0),
-            pose=poses[last],
-            frame_idx=state.frame_idx + n_real,
-            prev_depth=torch.where(ok_last, carry_depth, state.prev_depth),
-            prev_depth_valid=torch.where(ok_last, carry_depth > 0, state.prev_depth_valid),
-        )
-        result = ChunkResult(
-            poses=poses,
-            num_matches=mvalid.sum(dim=-1, dtype=torch.int32),
-            num_inliers=res.num_inliers,
-            pose_ok=res.success,
-            **self._features(kps, desc, match, mvalid, X_cur * cumscale[:, None, None], point_ok),
-        )
-        return result, new_state
+        points3d = X_cur * cumscale.reshape(-1)[:, None, None]
+        features = self._features(kps, desc, match, mvalid, points3d, point_ok)
+        num_matches = mvalid.sum(dim=-1, dtype=torch.int32)
+        results, new_states = [], []
+        for s, (state, n) in enumerate(zip(states, n_real)):
+            rows = slice(s * B, (s + 1) * B)
+            i = max(n - 1, 0)  # the sequence's last real frame
+            last = s * B + i
+            carry_depth = d_cur[s, i] * cumscale[s, i]
+            ok_last = res.success[last]
+            new_states.append(VoState(
+                prev_kps=KeypointSet(*(a[last] for a in kps)),
+                prev_desc=desc[last],
+                prev_exists=state.prev_exists | (n > 0),
+                pose=poses[s, i],
+                frame_idx=state.frame_idx + n,
+                prev_depth=torch.where(ok_last, carry_depth, state.prev_depth),
+                prev_depth_valid=torch.where(ok_last, carry_depth > 0, state.prev_depth_valid),
+            ))
+            results.append(ChunkResult(
+                poses=poses[s],
+                num_matches=num_matches[rows],
+                num_inliers=res.num_inliers[rows],
+                pose_ok=res.success[rows],
+                **{k: v[rows] for k, v in features.items()},
+            ))
+        return results, new_states
 
     def process_chunk_pnp(
         self, frames: torch.Tensor, frame_valid: torch.Tensor, state: PnpState, seed: int = 0
@@ -385,7 +430,7 @@ class SlamPipeline:
         frames, frame_valid, n_real = self._to_device(frames, frame_valid)
         vo = state.vo
         kps, desc, match, mvalid, res, X_prev, X_cur, point_ok = self._two_view_stage(
-            frames, frame_valid, vo, seed
+            frames[None], frame_valid[None], [vo], [seed]
         )
         fids = [vo.frame_idx + i for i in range(frames.shape[0])]
         track, m_out, a_out, _ = pnp_track_chunk(

@@ -170,7 +170,8 @@ def profile_stages(pipeline, frames: torch.Tensor, reps: int = 10, seed: int = 0
     mvalid = match.valid
     H = pcfg.num_hypotheses
     n_valid = mvalid.sum(dim=-1)
-    draws = stage("draws (a generator a frame)", lambda: pipeline._draws(list(range(B)), n_valid, seed, H),
+    draws = stage("draws (a generator a frame)",
+                  lambda: pipeline._draws([list(range(B))], n_valid, [seed], H, [pipeline.draw_fn]),
                   inputs=n_valid)
     M = mvalid.shape[1]
     k4 = msac_work(B, H, M)
@@ -189,7 +190,7 @@ def profile_stages(pipeline, frames: torch.Tensor, reps: int = 10, seed: int = 0
 
     X_prev, X_cur, point_ok = stage("triangulation", triangulate, inputs=(res.R, res.t, pts1, pts2))
     stage("scale and chaining", lambda: pipeline._scale_and_chain(
-        state, B, kps, desc, match, mvalid, res, X_prev, X_cur, point_ok), inputs=(X_prev, X_cur, point_ok))
+        [state], [B], kps, desc, match, mvalid, res, X_prev, X_cur, point_ok), inputs=(X_prev, X_cur, point_ok))
 
     def chunk():
         return pipeline.process_chunk(frames, valid, state, seed)
