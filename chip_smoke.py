@@ -173,10 +173,30 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    kernels 1-3 six launches a sequence, kernel 4 at least that, kernel 5
    none; each sequence bit-equal to ``run_sequence`` with its seed;
    aggregate frames/s;
-16. cli-timeshard — ``python -m tpuslam_torch.cli -c configs -v
+16. workers — the whole-run programs over ``dist/workers.py``'s worker
+   processes, one per mesh entry, at the same time: the mesh ``[cuda:0,
+   cuda:0]`` (two processes on the one card; only this phase names a card
+   twice) and, with more cards, every card.  ``shard_sequence_program`` with
+   two PnP SLAM sequences (tree vocabulary, the 96 frames, seeds 0 and 1),
+   each bit-equal to ``run_sequence`` by ``[multiseq]``'s rule, aggregate
+   frames/s against the two in turn in one worker process (a pool of one
+   entry, before and after; bit-equal too) and in this process;
+   ``run_timesharded_system`` (VO, 192 frames from a memmap, 4 shards), twice,
+   every field but ``seconds`` bit-equal to the in-process run on ``cuda:0``,
+   each worker's seconds against the in-process run's; ``run_timesharded``
+   (VO, 4 shards) bit-equal to the same entries in turn in this process
+   (``InProcess``) and within ``[timeshard]``'s hold of the one-entry run;
+   launch counts summed over the workers equal to the in-process runs'
+   exactly, kernels 1-4 launched; the workers' wall intervals overlap; TF32
+   off in every worker; a worker that exits raises ``WorkerDied``; no worker
+   process outlives its pool; the time of an answer the size of the
+   time-sharded run's DBs against an empty one, split into the worker's
+   packing into shared memory and the parent's reading;
+17. cli-timeshard — ``python -m tpuslam_torch.cli -c configs -v
    tests/data/images --timeshard 2 --slam --batch-size 4 --stats``
-   (through ``frames_to_memmap``): exit 0, 10 trajectory rows.
-17. loader — the port's frame loader (``pre/native_loader.py``, built with
+   (through ``frames_to_memmap``; on one card in this process): exit 0, 10
+   trajectory rows.
+18. loader — the port's frame loader (``pre/native_loader.py``, built with
    ``c++`` here): on the fixture directories (the four of the reference,
    and ``tests/data/torch_loader``'s filters, formats and interlaced) the
    native loader and the plain decoder give identical bytes; a JPEG
@@ -188,14 +208,14 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    ms a chunk; the CLI's ``--slam`` over that directory (in this process,
    kernels 1-3 six launches each) and ``SlamSystem.run`` over the same
    frames in memory, a warm-up of each, then in turns: frames/s of both;
-18. soak — ``tpuslam_torch/tools/soak.py``'s run: 1,536 frames (the ring of
+19. soak — ``tpuslam_torch/tools/soak.py``'s run: 1,536 frames (the ring of
    512 keyframes overflows three times), VO, the tree vocabulary, the
    redundancy policy: kernels 1-3 96 launches each, kernel 4 at least that,
    kernel 5 none; its pass rule (finite, ``pose_ok`` > 95%, >= 1 revisit
    loop into the prologue) and memory allocated flat from the ring's first
    overflow to the last chunk (within 16 MiB); the report, the memory after
    each chunk summarised;
-19. profile — ``tools/profile_stages.py`` on one main-path chunk and one
+20. profile — ``tools/profile_stages.py`` on one main-path chunk and one
    pyramid chunk (kernel 5) and ``tools/profile_slam.py`` (full SLAM in VO
    and PnP mode, localization against the PnP run's map) over the 96
    frames: their stage tables.
@@ -2438,6 +2458,224 @@ def phase_multiseq(camera, config_dir: Path, frames_np: np.ndarray, card: str, u
     return rec
 
 
+def same_bits(label: str, got, want, path: str = "result") -> None:
+    """``got`` equals ``want`` bit for bit (arrays and tensors compared on the host, in the dicts, lists,
+    tuples and scalars holding them); the first difference fails ``label``."""
+    if torch.is_tensor(want) or isinstance(want, np.ndarray):
+        g, w = (x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x) for x in (got, want))
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w, equal_nan=g.dtype.kind == "f"):
+            raise AssertionError(f"[{label}] {path} differs")
+    elif isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"[{label}] {path}: keys {sorted(got)} against {sorted(want)}")
+        for k in want:
+            same_bits(label, got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"[{label}] {path}: {len(got)} items against {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_bits(label, g, w, f"{path}[{i}]")
+    elif got != want:
+        raise AssertionError(f"[{label}] {path}: {got!r} against {want!r}")
+
+
+def phase_workers(camera, config_dir: Path, frames_np: np.ndarray, ts_frames: np.ndarray, card: str,
+                  uses) -> dict:
+    """The dist layer's whole-run programs over worker processes, one per mesh entry, at the same time.
+
+    The mesh names ``cuda:0`` twice (two processes on the one card; only here, to exercise the pool on
+    one card) and, where there are more cards, every card.  On each: (a) ``shard_sequence_program``,
+    two PnP SLAM sequences (tree vocabulary) over the 96 frames with seeds 0 and 1, each bit-equal to
+    ``run_sequence`` by ``[multiseq]``'s rule, aggregate frames/s against the two in turn in one worker
+    process (a pool of one entry; before and after, bit-equal too) and in this process; (b) ``run_timesharded_system`` (VO) over the 192 frames from a memmap in
+    4 shards, every field but ``seconds`` bit-equal to the in-process run on ``cuda:0`` (the DBs too),
+    twice (the first builds the workers' replicas), each worker's seconds; (c) ``run_timesharded`` (VO) in 4
+    shards, bit-equal to the same entries in turn in this process (``InProcess``: the same batches),
+    and against the one-entry run within ``[timeshard]``'s hold; (d) launch counts summed over the
+    workers equal to the in-process runs' exactly; (e) the workers' wall intervals overlap, TF32 off
+    in every worker, a dying worker raises ``WorkerDied``, and no child is left.  Also the time of an
+    answer as large as (b)'s DBs against an empty one.
+    """
+    import multiprocessing
+    import os
+
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.dist.mesh import make_device_mesh, shard_sequence_program
+    from tpuslam_torch.dist.timeshard import run_timesharded, run_timesharded_system
+    from tpuslam_torch.dist.workers import InProcess, WorkerDied, WorkerPool
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.model.slam import SlamPipeline
+    from tpuslam_torch.model.system import SlamSystem
+
+    label = "workers"
+    config = SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH)
+    vocab = config_dir / "vocabulary_tree.npz"
+    pnp = SlamSystem(camera, config, vocabulary=vocab, tracking="pnp", device="cuda")
+    vo = SlamSystem(camera, config, vocabulary=vocab, tracking="vo", device="cuda")
+    pipe = SlamPipeline(camera, config, device="cuda")
+    n, seeds = len(frames_np), [0, 1]
+    chunks = np.broadcast_to(frames_np.reshape(1, n // BATCH, BATCH, *frames_np.shape[1:]),
+                             (2, n // BATCH, BATCH, *frames_np.shape[1:])).copy()
+    valid = np.ones(chunks.shape[:3], bool)
+
+    def timed(fn, *args, **kw):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, launch_counts()
+
+    def in_turn():
+        return [pnp.run_sequence(frames_np, seed=s) for s in seeds]
+
+    want_seq, in_turn_s, seq_counts = timed(in_turn)
+    want_sys, sys_s, sys_counts = timed(run_timesharded_system, vo, ts_frames, TS_SHARDS, devices=["cuda:0"])
+    want_vo1, vo1_s, _ = timed(run_timesharded, pipe, ts_frames, TS_SHARDS, devices=["cuda:0"])
+    meshes = [["cuda:0", "cuda:0"]] + ([make_device_mesh()] if torch.cuda.device_count() > 1 else [])
+    recs = []
+    with contextlib.ExitStack() as stack, tempfile.TemporaryDirectory(prefix="chip_smoke_workers_") as tmp:
+        # the two sequences in turn in one worker process: (a)'s like-for-like baseline
+        solo = stack.enter_context(WorkerPool(["cuda:0"]))
+        solo_step = shard_sequence_program(pnp, ["cuda:0"], pool=solo)
+        ts_mm = np.memmap(Path(tmp) / "frames.u8", dtype=np.uint8, mode="w+", shape=ts_frames.shape)
+        ts_mm[:] = ts_frames
+        ts_mm.flush()
+        for devices in meshes:
+            names = [str(d) for d in devices]
+            t0 = time.perf_counter()
+            pool = WorkerPool(devices)
+            start_s = time.perf_counter() - t0
+            try:
+                for info in pool.info:
+                    if info["tf32"] or info["matmul_precision"] != "highest":
+                        raise AssertionError(f"[{label}] TF32 is on in worker {info['index']}")
+                # (a) two PnP SLAM sequences, one a worker
+                step = shard_sequence_program(pnp, devices, pool=pool)
+                _, warm_s, _ = timed(step, chunks, valid, [2, 3])
+                timed(solo_step, chunks, valid, [2, 3])  # the one worker's replica and first run
+                # one worker in turn, the workers at once, one worker in turn again: the same process kind
+                solo_runs = [timed(solo_step, chunks, valid, seeds)]
+                (carries, outs), run_s, counts = timed(step, chunks, valid, seeds)
+                walls = dict(pool.last_walls)
+                solo_runs.append(timed(solo_step, chunks, valid, seeds))
+                _, in_turn_after_s, _ = timed(in_turn)
+                check_launches(label, counts, {**{k: None for k in uses}, "fused_frontend_nms_batch": 0})
+                for what, got_counts in [("over the workers", counts)] + [("in one worker", r[2]) for r in solo_runs]:
+                    if got_counts != seq_counts:
+                        raise AssertionError(f"[{label}] (a) launches {got_counts} {what}, {seq_counts} in turn")
+                runs_a = [("over the workers", carries, outs)] + [("in one worker", *r[0]) for r in solo_runs]
+                for what, cs, os_ in runs_a:
+                    for s in range(2):  # the rule of [multiseq]
+                        got = pnp._fold_sequence(os_[s], n, cs[s])
+                        for k in ("poses", "pose_ok", "num_matches", "num_inliers", "reloc_ok"):
+                            same_bits(label, got[k], want_seq[s][k], f"(a) {what}, sequence {s} {k}")
+                        if [(lp["frame_id"], lp["matched_keyframe_id"]) for lp in got["loops"]] != \
+                                [(lp["frame_id"], lp["matched_keyframe_id"]) for lp in want_seq[s]["loops"]]:
+                            raise AssertionError(f"[{label}] (a) {what}, sequence {s}: loops differ from run_sequence")
+                if not max(t0 for t0, _ in walls.values()) < min(t1 for _, t1 in walls.values()):
+                    raise AssertionError(f"[{label}] (a) the workers did not run at the same time: {walls}")
+                fps, fps_turn = 2 * n / run_s, [2 * n / in_turn_s, 2 * n / in_turn_after_s]
+                fps_solo = [2 * n / r[1] for r in solo_runs]
+                log(f"[{label}] {names} (a) 2 PnP SLAM sequences of {n} frames: {fps:.2f} frames/s over "
+                    f"the workers ({pool.threads} torch threads each; warm-up {warm_s:.2f} s) against "
+                    f"{fps_solo[0]:.2f} / {fps_solo[1]:.2f} in turn in one worker process ({solo.threads} threads; "
+                    f"before / after): {fps / fps_solo[0]:.3f}x / {fps / fps_solo[1]:.3f}x; in turn in this "
+                    f"process {fps_turn[0]:.2f} / {fps_turn[1]:.2f} (before / after); each bit-equal to "
+                    f"run_sequence; walls {[round(t1 - t0, 3) for t0, t1 in walls.values()]} s; launches {counts} "
+                    f"(== in turn); pool start {start_s:.2f} s; on {card}")
+                # (b) time-sharded full SLAM, the frames from a memmap
+                runs = []
+                for rep in range(2):
+                    got, secs, counts_b = timed(run_timesharded_system, vo, ts_mm, TS_SHARDS, devices=devices,
+                                                pool=pool)
+                    same_bits(label, {k: v for k, v in got.items() if k != "seconds"},
+                              {k: v for k, v in want_sys.items() if k != "seconds"}, "(b)")
+                    if counts_b != sys_counts:
+                        raise AssertionError(f"[{label}] (b) launches {counts_b} over the workers, {sys_counts} "
+                                             "in process")
+                    db_bytes = sum(t.numel() * t.element_size() for db in got["dbs"] for t in db)
+                    runs.append({"seconds": secs, "workers_s": got["seconds"]["workers"],
+                                 "answers": [pool.last_answers[i] for i in sorted(pool.last_answers)],
+                                 "shards_s": got["seconds"]["shards"], "folds_s": got["seconds"]["folds"],
+                                 "cross_s": got["seconds"]["cross"], "pose_graph_s": got["seconds"]["pose_graph"],
+                                 "db_bytes": db_bytes})
+                log(f"[{label}] {names} (b) run_timesharded_system VO, {TS_FRAMES} frames in {TS_SHARDS} shards: "
+                    f"{runs[0]['seconds']:.2f} / {runs[1]['seconds']:.2f} s over the workers (first / second "
+                    f"call), each worker {[round(w, 3) for w in runs[1]['workers_s']]} s, shards "
+                    f"{[round(w, 3) for w in runs[1]['shards_s']]} s, folds {[round(w, 3) for w in runs[1]['folds_s']]}"
+                    f" s, then here the cross pass {runs[1]['cross_s']:.3f} s and the global graph "
+                    f"{runs[1]['pose_graph_s']:.3f} s, the DBs {runs[1]['db_bytes'] / 2**20:.1f} MiB back (each "
+                    f"answer's MiB, packed in the worker / read here s: "
+                    f"{[(round(a['bytes'] / 2**20, 1), round(a['pack_s'], 3), round(a['unpack_s'], 3)) for a in runs[1]['answers']]}"
+                    f"); in process "
+                    f"{sys_s:.2f} s (shards {[round(w, 3) for w in want_sys['seconds']['shards']]}, folds "
+                    f"{[round(w, 3) for w in want_sys['seconds']['folds']]}, cross {want_sys['seconds']['cross']:.3f}, "
+                    f"graph {want_sys['seconds']['pose_graph']:.3f}); every field bit-equal; launches == in process; "
+                    f"on {card}")
+                # (c) time-sharded VO: each entry's shards batched in its worker
+                want_vo, turn_s, turn_counts = timed(run_timesharded, pipe, ts_frames, TS_SHARDS, devices=devices,
+                                                     pool=InProcess(devices))
+                got_vo, vo_s, vo_counts = timed(run_timesharded, pipe, ts_frames, TS_SHARDS, devices=devices,
+                                                pool=pool)
+                same_bits(label, got_vo, want_vo, "(c)")
+                if vo_counts != turn_counts:
+                    raise AssertionError(f"[{label}] (c) launches {vo_counts} over the workers, {turn_counts} in turn")
+                same_bits(label, got_vo["segments_ok"], want_vo1["segments_ok"], "(c) against one entry: pose_ok")
+                g, w = got_vo["segments"].astype(np.float64), want_vo1["segments"].astype(np.float64)
+                rot, pos = float(np.abs(g[..., :3, :3] - w[..., :3, :3]).max()), float(np.abs(g[..., :3, 3] -
+                                                                                          w[..., :3, 3]).max())
+                if rot > 1e-4 or pos > 1e-3:
+                    raise AssertionError(f"[{label}] (c) against the one-entry run: R {rot}, t {pos}")
+                log(f"[{label}] {names} (c) run_timesharded VO, {TS_SHARDS} shards: {vo_s:.2f} s over the workers, "
+                    f"{turn_s:.2f} s for the same batches in turn in this process (bit-equal, launches "
+                    f"{vo_counts} == in turn), {vo1_s:.2f} s as one batch of {TS_SHARDS} on one entry (R {rot:.3g}, "
+                    f"t {pos:.3g}, bit-equal {bool(rot == 0 and pos == 0)}); on {card}")
+                # what an answer's size costs: (b)'s DBs as one tensor, against an empty answer
+                n_floats = runs[1]["db_bytes"] // 4
+                pool.run([(0, torch.zeros, (n_floats,))])  # warm-up
+                answer_s, answer_split = [], []
+                for k in (1, n_floats, 1, n_floats):
+                    answer_s.append(_host_s(pool.run, [(0, torch.zeros, (k,))]))
+                    answer_split.append(pool.last_answers[0])
+                log(f"[{label}] {names} (b') an answer of {runs[1]['db_bytes'] / 2**20:.1f} MiB (a float32 tensor "
+                    f"made in the worker) {answer_s[1]:.3f} / {answer_s[3]:.3f} s (packed into shared memory in the "
+                    f"worker {answer_split[1]['pack_s']:.3f} / {answer_split[3]['pack_s']:.3f} s, read out here "
+                    f"{answer_split[1]['unpack_s']:.3f} / {answer_split[3]['unpack_s']:.3f} s), an empty one "
+                    f"{answer_s[0]:.3f} / {answer_s[2]:.3f} s; on {card}")
+                # (e) a worker that dies fails the run with a named error
+                try:
+                    pool.run([(len(devices) - 1, os._exit, (3,))])
+                    raise AssertionError(f"[{label}] a dying worker raised nothing")
+                except WorkerDied as exc:
+                    died = str(exc)
+            finally:
+                pool.close()
+            alive = [c.pid for c in multiprocessing.active_children() if c.pid in pool.pids]
+            for pid in set(pool.pids) - set(alive):
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, 0)  # raises for a process that is gone
+                    alive.append(pid)
+            if alive:
+                raise AssertionError(f"[{label}] worker processes {alive} outlived the pool")
+            log(f"[{label}] {names} (e) a dying worker: {died}; no worker process left")
+            recs.append({"devices": names, "pool_start_s": start_s, "fps": fps, "fps_in_turn": fps_turn,
+                         "fps_one_worker": fps_solo, "speedup_vs_one_worker": [fps / f for f in fps_solo],
+                         "threads": pool.threads, "threads_one_worker": solo.threads,
+                         "speedup": [fps / f for f in fps_turn], "walls_s": [t1 - t0 for t0, t1 in walls.values()],
+                         "warm_up_s": warm_s, "launches": counts, "timeshard_slam": runs,
+                         "timeshard_slam_in_process_s": sys_s, "timeshard_slam_in_process": want_sys["seconds"], "timeshard_vo_s": vo_s,
+                         "timeshard_vo_in_turn_s": turn_s, "timeshard_vo_one_entry_s": vo1_s,
+                         "answer_s": {"empty": answer_s[0::2], "db_sized": answer_s[1::2],
+                                      "db_sized_pack_s": [a["pack_s"] for a in answer_split[1::2]],
+                                      "db_sized_unpack_s": [a["unpack_s"] for a in answer_split[1::2]]},
+                         "one_entry_diff": {"rotation": rot, "position": pos}})
+        del ts_mm
+    alive = [c.pid for c in multiprocessing.active_children() if c.pid in solo.pids]
+    if alive:
+        raise AssertionError(f"[{label}] the one-worker pool's process {alive} outlived it")
+    return {"meshes": recs, "launches": recs[0]["launches"]}
+
+
 def phase_cli_timeshard(card: str) -> dict:
     """``python -m tpuslam_torch.cli --timeshard 2 --slam`` over the 10 fixtures, through ``frames_to_memmap``."""
     label = "cli-timeshard"
@@ -2758,6 +2996,7 @@ def main() -> int:
                                      phase_timeshard_slam, camera, config_dir, ts_frames, card, main_uses, tracking)
                for tracking in ("vo", "pnp")}
     multiseq = timed_phase("multiseq", phase_multiseq, camera, config_dir, frames_np, card, main_uses)
+    workers = timed_phase("workers", phase_workers, camera, config_dir, frames_np, ts_frames, card, main_uses)
     cli_ts = timed_phase("cli-timeshard", phase_cli_timeshard, card)
 
     # The frame loader and the CLI over a directory, the soak past the keyframe ring, the stage profiles.
@@ -2789,6 +3028,7 @@ def main() -> int:
                                  "timeshard_slam_pnp": ts_slam["pnp"]["launches"][r["name"]],
                                  "multiseq": multiseq["launches"][r["name"]],
                                  "multiseq_vo": multiseq_vo["launches"][r["name"]],
+                                 "workers_multiseq": workers["launches"][r["name"]],
                                  "cli_directory": loader["cli_launches"][r["name"]],
                                  "soak": soak["launches"][r["name"]]}
         if r["name"] in timeshard["kernels_at_batch"]:
@@ -2827,7 +3067,7 @@ def main() -> int:
                     "slam_lc_pnp": slam_lc["pnp"], "pose_graph_pcg": pose_graph, "stream": stream["vo"],
                     "stream_pnp": stream["pnp"], "localize": localize, "timeshard": timeshard,
                     "timeshard_slam": ts_slam["vo"], "timeshard_slam_pnp": ts_slam["pnp"], "multiseq": multiseq, "multiseq_vo": multiseq_vo,
-                    "cli_timeshard": cli_ts, "loader": loader, "soak": soak, "profile": profile}))
+                    "workers": workers, "cli_timeshard": cli_ts, "loader": loader, "soak": soak, "profile": profile}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -10,7 +10,11 @@ reference's on a 2-device CPU mesh, the port replaying the reference's
 draws: shard d's chunk c draws from ``split(PRNGKey(d), C)[c]`` folded with
 the local frame index.  Per shard ``pose_ok`` identical, rotations within
 1e-4 and positions 1e-3; the stitched positions within 2e-3 of the path
-length and the stitch's Sim(3) scale within 1e-3 relative.
+length and the stitch's Sim(3) scale within 1e-3 relative.  The same run
+with the two shards in two worker processes at once (``devices=["cpu",
+"cpu"]``), each replaying the reference's draws it answered in the
+in-process run (``torch_worker_jobs.RecordedDraws``, picklable): the
+in-process run's bits, so the same holds against the reference.
 """
 
 import jax
@@ -21,6 +25,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from test_timeshard import _smooth_trajectory
+from torch_worker_jobs import RecordedDraws
 from test_torch_dist import tiny_frames, tiny_pipeline
 from test_torch_ba import one_torch_thread  # noqa: F401 (autouse: the port on one thread)
 from test_torch_system import _small
@@ -163,25 +168,38 @@ def reference_vo_draws(d: int, n_chunks: int):
     return draws
 
 
-@pytest.fixture(scope="module")
-def tiled_runs(data_dir):
-    cfg_dir = data_dir.parent.parent / "configs"
+def tiled_frames(data_dir) -> np.ndarray:
     stream = FrameStream(data_dir / "images")
     base = [stream.read_frame(i)[0] for i in range(stream.total_frames)]
-    frames = np.stack([base[i % 10] for i in range(N_FRAMES)])
+    return np.stack([base[i % 10] for i in range(N_FRAMES)])
+
+
+def port_pipeline(data_dir) -> TPipeline:
+    cfg_dir = data_dir.parent.parent / "configs"
+    return TPipeline(TCamera.from_yaml(cfg_dir / "camera.yml"),
+                     _small(TSlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH)), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def recorded_draws():
+    """Each shard's reference draws, recorded as the in-process run asks for them."""
+    S, V = tts.plan_time_shards(N_FRAMES, SHARDS, BATCH)
+    return {d: RecordedDraws(reference_vo_draws(d, (S + V) // BATCH)) for d in range(SHARDS)}
+
+
+@pytest.fixture(scope="module")
+def tiled_runs(data_dir, recorded_draws):
+    cfg_dir = data_dir.parent.parent / "configs"
+    frames = tiled_frames(data_dir)
     jpipe = JPipeline(JCamera.from_yaml(cfg_dir / "camera.yml"),
                       _small(JSlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH)))
     want = jts.run_timesharded(jpipe, frames, n_shards=SHARDS, mesh=jmesh(SHARDS), seed=0)
-    tpipe = TPipeline(TCamera.from_yaml(cfg_dir / "camera.yml"),
-                      _small(TSlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH)), device="cpu")
-    n_chunks = (want["S"] + want["V"]) // BATCH
-    got = tts.run_timesharded(tpipe, frames, SHARDS, seed=0, devices=["cpu"],
-                              shard_hooks=lambda d: {"draw_fn": reference_vo_draws(d, n_chunks)})
+    got = tts.run_timesharded(port_pipeline(data_dir), frames, SHARDS, seed=0, devices=["cpu"],
+                              shard_hooks=lambda d: {"draw_fn": recorded_draws[d]})
     return want, got
 
 
-def test_run_timesharded_matches_reference(tiled_runs):
-    want, got = tiled_runs
+def hold_against_reference(got, want):
     S, V = got["S"], got["V"]
     assert (S, V) == (want["S"], want["V"]) == (20, 5)
     assert got["poses"].shape == (N_FRAMES, 4, 4) and got["segments"].shape == (SHARDS, S + V, 4, 4)
@@ -198,6 +216,21 @@ def test_run_timesharded_matches_reference(tiled_runs):
     s_want = jts.sim3_from_pose_pairs(seg_want[1, :V][ok], seg_want[0, S - V : S][ok])[2]
     assert s_got == pytest.approx(s_want, rel=1e-3)
     assert got["pose_ok"].sum() >= N_FRAMES - 5  # frame 0 and the tiling's cuts at 10, 20, 30 have no pair
+
+
+def test_run_timesharded_matches_reference(tiled_runs):
+    want, got = tiled_runs
+    hold_against_reference(got, want)
+
+
+def test_run_timesharded_in_workers_matches_reference(data_dir, tiled_runs, recorded_draws):
+    """The two shards in two worker processes at the same time, replaying the draws recorded above."""
+    want, got = tiled_runs
+    workers = tts.run_timesharded(port_pipeline(data_dir), tiled_frames(data_dir), SHARDS, seed=0,
+                                  devices=["cpu", "cpu"], shard_hooks=lambda d: {"draw_fn": recorded_draws[d]})
+    for k in ("poses", "pose_ok", "segments", "segments_ok", "S", "V"):
+        np.testing.assert_array_equal(workers[k], got[k], err_msg=k)
+    hold_against_reference(workers, want)
 
 
 def test_timesharded_shard_is_its_window_alone():

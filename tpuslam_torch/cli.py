@@ -31,8 +31,11 @@ unknown start pose bootstrapping by relocalization.
 ``--frame-skip``) decode once into a memmap, each segment tracks with its
 own state, and the segments are stitched by Sim(3); with ``--slam`` each
 segment runs full SLAM and loops across segments close in a global pose
-graph.  It takes no ``--resume`` or ``--save-state``, and ``--tracking
-pnp`` only with ``--slam``.  ``--plot`` is not ported.
+graph.  The segments spread over the first min(N, visible cards) cards,
+one worker process a card, segment d on card ``d % cards``; with one card
+(or ``--device cpu``) they run in this process.  It takes no ``--resume``
+or ``--save-state``, and ``--tracking pnp`` only with ``--slam``.
+``--plot`` is not ported.
 """
 
 from __future__ import annotations
@@ -66,25 +69,26 @@ def _limited(batches, limit: int):
 def _timeshard(args, runner, stream: FrameStream, log) -> int:
     """``--timeshard N``: the frames decoded once into a memmap, then ``run_timesharded`` (VO) or
     ``run_timesharded_system`` (``--slam``)."""
-    from tpuslam_torch.dist.timeshard import run_timesharded, run_timesharded_system
+    from tpuslam_torch.dist.timeshard import default_mesh, run_timesharded, run_timesharded_system
     from tpuslam_torch.pre.stream import frames_to_memmap
 
     indices = stream.frame_indices()  # honours --frame-skip
     if args.max_frames:
         indices = indices[: args.max_frames]
     frames = frames_to_memmap(stream, indices)
+    devices = default_mesh(runner, args.timeshard)
     try:
         t0 = time.perf_counter()
         run = run_timesharded_system if args.slam else run_timesharded
-        result = run(runner, frames, n_shards=args.timeshard)
+        result = run(runner, frames, n_shards=args.timeshard, devices=devices)
         dt = time.perf_counter() - t0
     finally:
         path = frames.filename
         del frames
         os.unlink(path)
     n = len(indices)
-    log.info("Time-sharded %d frames over %d segments (S=%d, V=%d) in %.2f s",
-             n, args.timeshard, result["S"], result["V"], dt)
+    log.info("Time-sharded %d frames over %d segments (S=%d, V=%d) on %s in %.2f s", n, args.timeshard,
+             result["S"], result["V"], ", ".join(str(d) for d in devices), dt)
     save_kitti_trajectory(result["poses"], args.output)
     log.info("Trajectory written to %s", args.output)
     for lp in result.get("loops", []):

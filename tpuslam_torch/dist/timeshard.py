@@ -11,18 +11,25 @@ Layout (core segment length S, overlap V, both multiples of the batch):
     shard 0:  frames [0,            S + V)    core = local [0, S)
     shard d:  frames [d·S − V, (d+1)·S)       core = local [V, V + S)
 
-Shard d runs on ``devices[d % len(devices)]`` (``dist/mesh.py``).  In VO
-mode (``run_timesharded``) the shards that share a device run as one
-batched sequence (``SlamPipeline.process_chunks`` a chunk, the reference's
-``jax.vmap``), each batched chunk staged just before it runs; full SLAM
-(``run_timesharded_system``) runs them in turn, in shard order, one
-window (``stage_shard``) on the device at a time, as the reference runs
-one unbatched program per core.  Either way only the rows that run are
-read from the frame array (a ``frames_to_memmap`` memmap reads only
-those).  Shard d draws from ``(seed + d, local frame)`` in the pipeline's
+Shard d runs on entry ``d % len(devices)`` of the mesh (``dist/mesh.py``;
+default: the first min(D, visible cards) cards for a pipeline on the card,
+``default_mesh``).  The entries of a mesh of more than one run at the same
+time, one worker process each (``dist/workers.py``), and a mesh of one
+entry runs in this process.  In VO mode (``run_timesharded``) an entry's
+shards run as one batched sequence (``SlamPipeline.process_chunks`` a
+chunk, the reference's ``jax.vmap``), each batched chunk staged just before
+it runs; full SLAM (``run_timesharded_system``) runs an entry's shards in
+turn, in shard order, one window (``stage_shard``) on the device at a time,
+and folds each there, as the reference runs one unbatched program per core.
+Either way only the rows that run are read from the frame array: a
+``frames_to_memmap`` memmap reads only those, in a worker too (it maps the
+file), and another array is copied once into shared memory for the
+workers.  Shard d draws from ``(seed + d, local frame)`` in the pipeline's
 streams; ``shard_hooks(d)`` may instead give it draw hooks (``draw_fn``,
 ``pnp_draw_fn``, ``lc_draw_fn``, ``reloc_draw_fn``, called with local frame
-ids, so the chunk is ``frame // B``).
+ids, so the chunk is ``frame // B``).  A worker receives its hooks pickled,
+so on a mesh of more than one entry a hook that cannot be pickled (a
+closure) raises ``ValueError`` naming it.
 
 Inside a shard everything runs on local frame ids: the map, the keyframe
 DB, ``kf_enabled`` and the BA snapshots.  Only the reported loops, BA
@@ -43,7 +50,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from tpuslam_torch.dist.mesh import _groups, _Replicas
+from tpuslam_torch.dist.mesh import _PIPELINE_HOOKS, _entries, make_device_mesh, replica_on
+from tpuslam_torch.dist.workers import crosses_processes, executor, require_picklable
 from tpuslam_torch.model.slam import _stack_results
 
 _CROSS_STREAM = 0x27D4EB2F165667C5  # xor-ed into the seed of cross-segment verification's draws
@@ -118,9 +126,6 @@ def _core_ok(pose_ok: np.ndarray, S: int, V: int, n: int) -> np.ndarray:
     return np.concatenate([pose_ok[0, :S]] + [pose_ok[d, V : V + S] for d in range(1, D)])[:n]
 
 
-_PIPELINE_HOOKS = ("draw_fn", "pnp_draw_fn")
-
-
 @contextmanager
 def _shard_hooks(obj, hooks: dict | None):
     """Set ``hooks`` on a ``SlamPipeline`` or ``SlamSystem`` (the two-view and tracker hooks live on
@@ -141,13 +146,50 @@ def _shard_hooks(obj, hooks: dict | None):
             setattr(target, name, fn)
 
 
-def _placement(obj, devices):
-    return _Replicas(obj, [obj.device] if devices is None else devices)
+def default_mesh(obj, n_shards: int) -> list[torch.device]:
+    """The mesh of a time-sharded run of ``obj`` (a ``SlamPipeline`` or ``SlamSystem``) into ``n_shards``:
+    the first min(n_shards, visible cards) cards when ``obj`` is on the card (the reference's
+    ``make_device_mesh(n_shards)``, without its refusal of fewer cards than shards: shard d runs on
+    entry ``d % len``), else ``obj``'s own device; ``obj``'s device alone where that is one card."""
+    dev = torch.device(obj.device)
+    n = min(n_shards, torch.cuda.device_count()) if dev.type == "cuda" else 1
+    return make_device_mesh(n) if n > 1 else [dev]
+
+
+def _hooks(shard_hooks, shards: list[int], pickled: bool, allowed: set | None = None) -> list[dict]:
+    """``shard_hooks(d)`` of each shard (``{}`` without it): only ``allowed`` names where given, and each
+    hook picklable where the shards run in another process (``pickled``)."""
+    hooks = [shard_hooks(d) if shard_hooks else {} for d in shards]
+    for d, h in zip(shards, hooks):
+        extra = sorted(set(h) - allowed) if allowed is not None else []
+        if extra:
+            raise ValueError(f"shard {d}: run_timesharded takes a draw_fn hook only, not {extra}")
+        if pickled:
+            require_picklable(h, f"shard {d}")
+    return hooks
 
 
 # --------------------------------------------------------------------------
 # Sharded tracking
 # --------------------------------------------------------------------------
+def _track_shards(pipe, frames, shards: list[int], hooks: list[dict], S: int, V: int, seed: int) -> list:
+    """One mesh entry's shards as one batched sequence, a batched chunk staged just before it runs →
+    ``[(poses (S+V, 4, 4), pose_ok (S+V,))]`` by shard, numpy."""
+    B = pipe.config.batch_size
+    draw_fns = [h.get("draw_fn", pipe.draw_fn) for h in hooks]
+    states = [pipe.initial_state() for _ in shards]
+    out = []
+    for c in range((S + V) // B):
+        chunk, valid = _window_rows(frames, shards, c * B + np.arange(B), S, V, pipe.device)
+        results, states = pipe.process_chunks(chunk, valid, states, [seed + d for d in shards], draw_fns)
+        out.append(results)
+    tracked = []
+    for i in range(len(shards)):
+        result = _stack_results([r[i] for r in out])
+        tracked.append((result.poses.reshape(-1, 4, 4).cpu().numpy(), result.pose_ok.reshape(-1).cpu().numpy()))
+    return tracked
+
+
 def run_timesharded(
     pipeline,
     frames,
@@ -156,41 +198,37 @@ def run_timesharded(
     seed: int = 0,
     devices: Sequence[torch.device | str] | None = None,
     shard_hooks: Callable[[int], dict] | None = None,
+    pool=None,
 ) -> dict:
     """Track one long sequence cut into ``n_shards`` time segments (VO), then stitch.
 
-    Each shard runs over its S + V frames with seed + d, on ``devices[d %
-    len(devices)]`` (default: the pipeline's own device); the shards of one
-    device run as one batched sequence, one ``SlamPipeline.process_chunks``
-    a chunk, each shard with its own carry and draws (``shard_hooks(d)`` may
-    give shard d a ``draw_fn``).  Returns ``poses`` (N, 4, 4) stitched in
-    shard 0's frame, ``pose_ok`` (N,) of the core frames, ``segments`` (D,
-    S+V, 4, 4) raw per shard, ``segments_ok``, ``S``, ``V``.
+    Each shard runs over its S + V frames with seed + d, on entry ``d %
+    len(devices)`` (default ``default_mesh(pipeline, n_shards)``); the shards
+    of one entry run as one batched sequence, one
+    ``SlamPipeline.process_chunks`` a chunk, each shard with its own carry
+    and draws (``shard_hooks(d)`` may give shard d a ``draw_fn``).  The
+    entries of a mesh of more than one run at the same time in ``pool`` (a
+    ``workers.WorkerPool`` or ``InProcess`` over ``devices``; default: a
+    ``WorkerPool`` for the call); there every hook must pickle, and one
+    that does not raises ``ValueError`` naming it.  Returns ``poses`` (N, 4,
+    4) stitched in shard 0's frame, ``pose_ok`` (N,) of the core frames,
+    ``segments`` (D, S+V, 4, 4) raw per shard, ``segments_ok``, ``S``,
+    ``V``.
     """
     B = pipeline.config.batch_size
     n = len(frames)
     S, V = plan_time_shards(n, n_shards, B, overlap)
-    devices = [pipeline.device] if devices is None else devices
-    replicas = _placement(pipeline, devices)
+    devices = default_mesh(pipeline, n_shards) if devices is None else devices
     poses, pose_ok = [None] * n_shards, [None] * n_shards
-    for shards in _groups(n_shards, devices).values():
-        pipe = replicas(shards[0])
-        hooks = [shard_hooks(d) if shard_hooks else {} for d in shards]
-        for d, h in zip(shards, hooks):
-            extra = sorted(set(h) - {"draw_fn"})
-            if extra:
-                raise ValueError(f"shard {d}: run_timesharded takes a draw_fn hook only, not {extra}")
-        draw_fns = [h.get("draw_fn", pipe.draw_fn) for h in hooks]
-        states = [pipe.initial_state() for _ in shards]
-        out = []
-        for c in range((S + V) // B):  # one batched chunk of every shard, staged just before it runs
-            chunk, valid = _window_rows(frames, shards, c * B + np.arange(B), S, V, pipe.device)
-            results, states = pipe.process_chunks(chunk, valid, states, [seed + d for d in shards], draw_fns)
-            out.append(results)
-        for i, d in enumerate(shards):
-            result = _stack_results([r[i] for r in out])
-            poses[d] = result.poses.reshape(-1, 4, 4).cpu().numpy()
-            pose_ok[d] = result.pose_ok.reshape(-1).cpu().numpy()
+    groups = _entries(n_shards, len(devices))
+    crosses = crosses_processes(devices, pool)
+    calls = [(e, _track_shards, (shards, _hooks(shard_hooks, shards, crosses, {"draw_fn"}), S, V, seed))
+             for e, shards in groups.items()]
+    with executor(devices, pool) as ex:
+        values = ex.run(calls, obj=pipeline, frames=frames)
+    for shards, tracked in zip(groups.values(), values):
+        for d, (p, ok) in zip(shards, tracked):
+            poses[d], pose_ok[d] = p, ok
     poses, pose_ok = np.stack(poses), np.stack(pose_ok)
     return {
         "poses": stitch_segments(poses, S, V, n, pose_ok=pose_ok),
@@ -202,6 +240,38 @@ def run_timesharded(
     }
 
 
+def _system_shards(system, frames, shards: list[int], hooks: list[dict], S: int, V: int, seed: int) -> list:
+    """One mesh entry's shards of a full SLAM run, in turn: each shard's ``_sequence_raw`` from a fresh
+    carry, then its fold over all its S + V frames (``run_sequence``'s: BA snapshots, then its pose
+    graph), its core region's loops and BA events at global frame ids."""
+    B = system.config.batch_size
+    L = S + V
+    out = []
+    for d, h in zip(shards, hooks):
+        t0 = time.perf_counter()
+        chunks, valid = stage_shard(frames, d, S, V, B, system.device)
+        with _shard_hooks(system, h):
+            carry, raw = system._sequence_raw(chunks, valid, system.initial_carry(), seed + d)
+        del chunks
+        t1 = time.perf_counter()
+        folded = system._fold_sequence(raw, L, carry)
+        offset = _shard_start(d, S, V)
+        core_lo = 0 if d == 0 else V
+        out.append({
+            "ba_events": [{**ev, "frame_id": offset + ev["frame_id"]}
+                          for ev in folded["ba_events"] if ev["frame_id"] >= core_lo],
+            "loops": [{**lp, "frame_id": offset + lp["frame_id"],
+                       "matched_keyframe_id": offset + lp["matched_keyframe_id"]}
+                      for lp in folded["loops"] if lp["frame_id"] >= core_lo],
+            "db": folded["db"],
+            "poses": folded["poses"],
+            "pose_ok": folded["pose_ok"],
+            "kf_enabled": raw["kf_enabled"].reshape(L),
+            "seconds": (t1 - t0, time.perf_counter() - t1),
+        })
+    return out
+
+
 def run_timesharded_system(
     system,
     frames,
@@ -210,62 +280,63 @@ def run_timesharded_system(
     seed: int = 0,
     devices: Sequence[torch.device | str] | None = None,
     shard_hooks: Callable[[int], dict] | None = None,
+    pool=None,
 ) -> dict:
     """Time-shard a full SLAM run (tracking, map, loop closure, BA; VO or PnP tracking).
 
     Each shard runs ``SlamSystem._sequence_raw`` from a fresh carry with
-    seed + d: its own map, keyframe DB and BA schedule.  On the host each
-    shard's outputs fold as ``run_sequence``'s do (``_fold_sequence`` over
-    all S + V frames: its BA snapshots, then its own pose graph), and the
-    BA events and loops of its core region are kept at global ids
-    ``d·S − V + local``; then the shards stitch as in VO mode.  With loop
-    closure and more than one shard, ``cross_segment_loop_closure`` scores
-    each shard's DB against every earlier shard's and verifies the best
-    candidates in one batched call; verified cross loops feed a global pose
-    graph over every shard's core keyframes on the stitched trajectory.
+    seed + d: its own map, keyframe DB and BA schedule, on entry ``d %
+    len(devices)`` (default ``default_mesh(system, n_shards)``), an entry's
+    shards in turn.  Each shard's outputs fold there as ``run_sequence``'s
+    do (``_fold_sequence`` over all S + V frames: its BA snapshots, then its
+    own pose graph), and the BA events and loops of its core region are
+    kept at global ids ``d·S − V + local``.  The entries of a mesh of more
+    than one run at the same time in ``pool`` (a ``workers.WorkerPool`` or
+    ``InProcess`` over ``devices``; default: a ``WorkerPool`` for the
+    call); there every hook, the system's and ``shard_hooks(d)``'s, must
+    pickle, and one that does not raises ``ValueError`` naming it, and the
+    DBs come back on the host.  Then, here, the shards stitch as in VO
+    mode; with loop closure and more than one shard,
+    ``cross_segment_loop_closure`` scores each shard's DB against every
+    earlier shard's and verifies the best candidates in one batched call on
+    shard 0's device; verified cross loops feed a global pose graph over
+    every shard's core keyframes on the stitched trajectory.
 
     Returns ``poses``, ``pose_ok``, ``segments``, ``segments_ok``,
     ``loops`` (in-shard core loops, then cross loops), ``cross_loops``,
     ``ba_events``, ``S``, ``V``, ``dbs`` (each shard's final DB, None
     without loop closure), ``global_keyframes``, ``pose_graph_applied``
-    (the global graph) and ``seconds`` (host time of each shard's run and of
-    its fold, of the stitch, the cross pass and the global pose graph).
+    (the global graph) and ``seconds``: host time of each shard's run and
+    of its fold (``shards``, ``folds``, taken where the shard ran), each
+    entry's wall time over its shards (``workers``), and the stitch's, the
+    cross pass's and the global pose graph's.
     """
     B = system.config.batch_size
     n = len(frames)
     S, V = plan_time_shards(n, n_shards, B, overlap)
-    L = S + V
     D = n_shards
-    replicas = _placement(system, devices)
-    seconds = {"shards": [], "folds": [], "stitch": 0.0, "cross": 0.0, "pose_graph": 0.0}
+    devices = default_mesh(system, n_shards) if devices is None else devices
+    seconds = {"shards": [0.0] * D, "folds": [0.0] * D, "workers": [], "stitch": 0.0, "cross": 0.0,
+               "pose_graph": 0.0}
+    shard_out = [None] * D
+    groups = _entries(D, len(devices))
+    crosses = crosses_processes(devices, pool)
+    calls = [(e, _system_shards, (shards, _hooks(shard_hooks, shards, crosses), S, V, seed))
+             for e, shards in groups.items()]
+    with executor(devices, pool) as ex:
+        values = ex.run(calls, obj=system, frames=frames)
+        seconds["workers"] = [t1 - t0 for t0, t1 in ex.last_walls.values()]
+    for shards, outs in zip(groups.values(), values):
+        for d, o in zip(shards, outs):
+            shard_out[d] = o
+            seconds["shards"][d], seconds["folds"][d] = o["seconds"]
 
-    segments, pose_ok, kf_enabled, dbs = [], [], [], []
-    all_loops: list[dict] = []
-    all_ba_events: list[dict] = []
-    for d in range(D):
-        t0 = time.perf_counter()
-        rep = replicas(d)
-        chunks, valid = stage_shard(frames, d, S, V, B, rep.device)
-        with _shard_hooks(rep, shard_hooks(d) if shard_hooks else None):
-            carry, raw = rep._sequence_raw(chunks, valid, rep.initial_carry(), seed + d)
-        del chunks
-        t1 = time.perf_counter()
-        seconds["shards"].append(t1 - t0)
-        # the shard's own fold over all its S + V frames (run_sequence's: BA snapshots, then its pose
-        # graph), then its core region's loops and BA events at global frame ids
-        folded = rep._fold_sequence(raw, L, carry)
-        offset = _shard_start(d, S, V)
-        core_lo = 0 if d == 0 else V
-        all_ba_events.extend({**ev, "frame_id": offset + ev["frame_id"]}
-                             for ev in folded["ba_events"] if ev["frame_id"] >= core_lo)
-        all_loops.extend({**lp, "frame_id": offset + lp["frame_id"],
-                          "matched_keyframe_id": offset + lp["matched_keyframe_id"]}
-                         for lp in folded["loops"] if lp["frame_id"] >= core_lo)
-        dbs.append(folded["db"])
-        segments.append(folded["poses"])
-        pose_ok.append(folded["pose_ok"])
-        kf_enabled.append(raw["kf_enabled"].reshape(L))
-        seconds["folds"].append(time.perf_counter() - t1)
+    all_ba_events = [ev for o in shard_out for ev in o["ba_events"]]
+    all_loops = [lp for o in shard_out for lp in o["loops"]]
+    dbs = [o["db"] for o in shard_out]
+    segments = [o["poses"] for o in shard_out]
+    pose_ok = [o["pose_ok"] for o in shard_out]
+    kf_enabled = [o["kf_enabled"] for o in shard_out]
 
     t0 = time.perf_counter()
     segments, pose_ok = np.stack(segments), np.stack(pose_ok)
@@ -278,7 +349,7 @@ def run_timesharded_system(
     pose_graph_applied = False
     if system.loop_closure is not None and D > 1:
         t0 = time.perf_counter()
-        lead = replicas(0)  # the cross pass and the global graph run on shard 0's device
+        lead = replica_on(system, devices[0])  # the cross pass and the global graph run on shard 0's device
         cross_loops = cross_segment_loop_closure(lead, dbs, D, S, V, n, seed=seed)
         seconds["cross"] = time.perf_counter() - t0
         # each shard's core keyframes at global ids (lead-in keyframes repeat the previous shard's tail)

@@ -3,10 +3,14 @@
 Each wrapper launches its kernel for CUDA tensors and runs its plain twin
 for CPU tensors, and counts its launches in an integer attribute
 ``launches``; :func:`launch_counts` reads all five counts and
-:func:`reset_launch_counts` zeroes them.
+:func:`reset_launch_counts` zeroes them.  Launches made in the worker
+processes of ``dist/workers.py`` reach the parent with each call's answer
+(:func:`add_launch_counts`), so :func:`launch_counts` counts them too.
 """
 
 from __future__ import annotations
+
+_WORKER_LAUNCHES: dict[str, int] = {}  # launches reported by worker processes since the last reset
 
 
 def _wrappers():
@@ -24,9 +28,17 @@ def _wrappers():
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Each wrapper's launches in this process plus those its worker processes reported."""
+    return {name: fn.launches + _WORKER_LAUNCHES.get(name, 0) for name, fn in _wrappers().items()}
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add launches a worker process made (``dist/workers.py``) to this process's counts."""
+    for name, n in counts.items():
+        _WORKER_LAUNCHES[name] = _WORKER_LAUNCHES.get(name, 0) + int(n)
 
 
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+    _WORKER_LAUNCHES.clear()
