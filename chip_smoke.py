@@ -199,23 +199,40 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
 18. loader — the port's frame loader (``pre/native_loader.py``, built with
    ``c++`` here): on the fixture directories (the four of the reference,
    and ``tests/data/torch_loader``'s filters, formats and interlaced) the
-   native loader and the plain decoder give identical bytes; a JPEG
-   directory opens where this machine has libjpeg and raises a named error
-   where it has none; 96 frames written as adaptive-filter PNGs
+   native loader and the plain decoder give identical bytes; on every JPEG
+   fixture (``torch_loader/jpeg``, ``jpeg_kitti``, ``jpeg_variants``) the
+   loader, the plain twin ``decode_jpeg_gray8`` and the libjpeg bytes
+   committed in ``expected_gray.npz`` agree, and the CMYK and SOF9
+   variants raise their named ``FrameDecodeError`` from both; 96 frames written as adaptive-filter PNGs
    (``encode_png``: Sub, Average and Paeth rows) decode to their source:
    the native loader's ms a frame with its thread count, the plain
    decoder's on 4 of them and on the committed frames, ``FrameStream.batches``
    ms a chunk; the CLI's ``--slam`` over that directory (in this process,
    kernels 1-3 six launches each) and ``SlamSystem.run`` over the same
    frames in memory, a warm-up of each, then in turns: frames/s of both;
-19. soak — ``tpuslam_torch/tools/soak.py``'s run: 1,536 frames (the ring of
+19. jpeg — JPEG frames on the card: decode ms a 1392x512 frame, one frame a
+   call and 96 in one call on the loader's pool, for the committed KITTI
+   JPEGs and PNGs (96 ping-pong links to each); ``python -m
+   tpuslam_torch.cli --slam -v <dir> --save-state`` over the 96 JPEG
+   frames (in this process; kernels 1-3 six launches each) against
+   ``SlamSystem.run`` over the same frames decoded by the plain twin, in
+   memory: every checkpoint leaf bit-equal; frames/s of both;
+20. vocab-tools — ``tpuslam_torch.tools.train_vocabulary`` flat (256 words)
+   and ``--tree 16,16`` over ``torch_loader/jpeg_kitti`` and
+   ``images_test_loop`` on the card and on the CPU: the arrays equal; the
+   nine ``--augment`` operations card == CPU on a frame;
+   ``calibrate_vocabulary.calibrate`` and ``eval_vocabulary.evaluate``
+   with ``configs/vocabulary.npz`` and ``vocabulary_tree.npz`` card == CPU
+   (rounded fields exactly, other floats to 1e-5); seconds of each tool
+   and kernel 1's launches (kernels 2-5 none: BRIEF bins 0);
+21. soak — ``tpuslam_torch/tools/soak.py``'s run: 1,536 frames (the ring of
    512 keyframes overflows three times), VO, the tree vocabulary, the
    redundancy policy: kernels 1-3 96 launches each, kernel 4 at least that,
    kernel 5 none; its pass rule (finite, ``pose_ok`` > 95%, >= 1 revisit
    loop into the prologue) and memory allocated flat from the ring's first
    overflow to the last chunk (within 16 MiB); the report, the memory after
    each chunk summarised;
-20. profile — ``tools/profile_stages.py`` on one main-path chunk and one
+22. profile — ``tools/profile_stages.py`` on one main-path chunk and one
    pyramid chunk (kernel 5) and ``tools/profile_slam.py`` (full SLAM in VO
    and PnP mode, localization against the PnP run's map) over the 96
    frames: their stage tables.
@@ -2735,18 +2752,13 @@ def phase_loader(camera, config_dir: Path, frames_np: np.ndarray, card: str) -> 
             if not np.array_equal(frame, decode_png_gray8(path)):
                 raise AssertionError(f"[{label}] {path}: the native loader and the plain decoder differ")
         loader.close()
-    jpeg_dir = data / "torch_loader" / "jpeg"
-    if native_loader.has_jpeg():
-        jpeg = f"JPEG decoded ({native_loader.NativeFrameLoader(jpeg_dir).decode_batch(0, 2).shape})"
-    else:
-        try:
-            native_loader.NativeFrameLoader(jpeg_dir)
-        except native_loader.FrameDecodeError as exc:
-            jpeg = f"no libjpeg on this machine: a JPEG directory raises at open ({exc})"
-        else:
-            raise AssertionError(f"[{label}] a JPEG directory opened without libjpeg")
+    t0 = time.perf_counter()
+    jpeg, twin_frames = check_jpeg_fixtures(label)
+    jpeg["seconds"] = time.perf_counter() - t0
     log(f"[{label}] loader built in {build_s:.1f} s; native == plain decoder on {len(LOADER_DIRS)} directories "
-        f"({', '.join(LOADER_DIRS)}); {jpeg}")
+        f"({', '.join(LOADER_DIRS)}); JPEG: loader == plain twin == the committed libjpeg bytes on "
+        f"{jpeg['decoded']} fixtures of {', '.join(JPEG_DIRS)}, {jpeg['refused']} refused variants named "
+        f"({'; '.join(jpeg['refusals'])}) in {jpeg['seconds']:.1f} s")
 
     cfg = SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH)
     vocab = config_dir / "vocabulary_tree.npz"
@@ -2822,7 +2834,244 @@ def phase_loader(camera, config_dir: Path, frames_np: np.ndarray, card: str) -> 
     return {"build_s": build_s, "native_ms_per_frame": native_ms, "threads": threads,
             "native_ms_per_frame_thread": native_ms * threads, "batches_ms_per_chunk": batches_ms,
             "plain_ms_per_frame": plain_ms, "plain_ms_per_frame_committed": committed_ms,
-            "cli_fps": cli_fps, "run_fps": run_fps, "cli_over_run": ratio, "jpeg": jpeg, "cli_launches": cli_launches}
+            "cli_fps": cli_fps, "run_fps": run_fps, "cli_over_run": ratio, "jpeg": jpeg, "cli_launches": cli_launches,
+            "jpeg_twin_frames": twin_frames}
+
+
+JPEG_DIRS = ("torch_loader/jpeg", "torch_loader/jpeg_kitti", "torch_loader/jpeg_variants")
+JPEG_REFUSED = ("98_cmyk.jpg", "99_sof9.jpg")  # CMYK, and SOF9 (arithmetic coding)
+
+
+def check_jpeg_fixtures(label: str) -> tuple[dict, dict]:
+    """Every JPEG fixture through the loader and the plain twin, held to the libjpeg bytes of
+    ``tests/data/torch_loader/expected_gray.npz`` (their SHA-256, and the variants' bytes themselves);
+    the refused variants raise their named ``FrameDecodeError`` from both.  → (summary, the twin's
+    ``jpeg_kitti`` frames by file name)."""
+    import hashlib
+
+    from tpuslam_torch.pre import native_loader
+    from tpuslam_torch.pre.jpeg import decode_jpeg_gray8
+
+    data = REPO / "tests" / "data"
+    expected = np.load(data / "torch_loader" / "expected_gray.npz")
+    twin_frames, decoded, refusals = {}, 0, []
+    for sub in JPEG_DIRS:
+        loader = native_loader.NativeFrameLoader(data / sub)
+        for i, path in enumerate(loader.files):
+            key = f"{sub.split('/', 1)[1]}/{path.name}"
+            if path.name in JPEG_REFUSED:
+                for decode in (lambda: loader.decode_indices([i]), lambda: decode_jpeg_gray8(path)):
+                    try:
+                        decode()
+                    except native_loader.FrameDecodeError as exc:
+                        if "not supported" not in str(exc) or path.name not in str(exc):
+                            raise AssertionError(f"[{label}] {path}: refused without naming it: {exc}") from exc
+                        refusals.append(str(exc).split(": ", 1)[1])
+                    else:
+                        raise AssertionError(f"[{label}] {path}: a refused JPEG variant decoded")
+                continue
+            got = loader.decode_indices([i])[0]
+            if not np.array_equal(got, decode_jpeg_gray8(path)):
+                raise AssertionError(f"[{label}] {path}: the loader and the plain twin differ")
+            if hashlib.sha256(got.tobytes()).digest() != expected[f"{key}:sha256"].tobytes() or (
+                    key in expected.files and not np.array_equal(got, expected[key])):
+                raise AssertionError(f"[{label}] {path}: not the libjpeg bytes committed in expected_gray.npz")
+            if sub.endswith("jpeg_kitti"):
+                twin_frames[path.name] = got
+            decoded += 1
+        loader.close()
+    return {"decoded": decoded, "refused": len(JPEG_REFUSED), "refusals": sorted(set(refusals))}, twin_frames
+
+
+def ping_pong(n_frames: int, n_base: int) -> list[int]:
+    period = 2 * (n_base - 1)
+    return [min(i % period, period - i % period) for i in range(n_frames)]
+
+
+def decode_rates(directory: Path) -> dict:
+    """The loader's ms a frame over a directory: one frame a call (one thread busy) and all in one call (the pool)."""
+    from tpuslam_torch.pre import native_loader
+
+    loader = native_loader.NativeFrameLoader(directory)
+    n = loader.n_frames
+    loader.decode_indices(range(n))  # warm: the files in the page cache
+    t0 = time.perf_counter()
+    for i in range(n):
+        loader.decode_indices([i])
+    one = 1e3 * (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    loader.decode_indices(range(n))
+    pool = 1e3 * (time.perf_counter() - t0) / n
+    out = {"one_thread_ms": one, "pool_ms": pool, "threads": loader.threads}
+    loader.close()
+    return out
+
+
+def phase_jpeg(camera, config_dir: Path, twin_frames: dict, card: str) -> dict:
+    """JPEG frames on the card: decode ms a 1392x512 frame beside PNG's on the same frames, and the CLI's
+    ``--slam`` over 96 JPEG frames (ping-pong links to the committed KITTI JPEGs) bit-equal to
+    ``SlamSystem.run`` over the same frames decoded by the plain twin, in memory."""
+    from tpuslam_torch.cli import main as cli_main
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.model.system import SlamSystem
+    from tpuslam_torch.utils.checkpoint import save_state
+
+    label = "jpeg"
+    data = REPO / "tests" / "data"
+    names = sorted(twin_frames)
+    idx = ping_pong(N_FRAMES, len(names))
+    frames_np = np.stack([twin_frames[names[k]] for k in idx])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_jpeg_") as tmp:
+        tmp = Path(tmp)
+        jdir, pdir = tmp / "jpeg", tmp / "png"
+        jdir.mkdir()
+        pdir.mkdir()
+        for i, k in enumerate(idx):
+            (jdir / f"{i:06d}.jpg").symlink_to(data / "torch_loader" / "jpeg_kitti" / names[k])
+            (pdir / f"{i:06d}.png").symlink_to(data / "images" / names[k].replace(".jpg", ".png"))
+        rates = {"jpeg": decode_rates(jdir), "png": decode_rates(pdir)}
+        log(f"[{label}] decode ms a 1392x512 frame, one frame a call / all {N_FRAMES} in one call on "
+            f"{rates['jpeg']['threads']} threads: JPEG (4:2:0, quality 65) {rates['jpeg']['one_thread_ms']:.2f} / "
+            f"{rates['jpeg']['pool_ms']:.2f}, PNG (the committed Sub-filtered frames) "
+            f"{rates['png']['one_thread_ms']:.2f} / {rates['png']['pool_ms']:.2f} on {card}")
+
+        cfg = SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH)
+        system = SlamSystem(camera, cfg, vocabulary=config_dir / "vocabulary_tree.npz", tracking="vo",
+                            device="cuda")
+        argv = ["-c", str(config_dir), "-v", str(jdir), "--slam", "--batch-size", str(BATCH), "--stats",
+                "-o", str(tmp / "traj.txt"), "--save-state", str(tmp / "cli.npz")]
+        cli_fps, run_fps = [], []
+        for turn in ("cli", "run", "cli", "run", "run", "cli"):  # a warm-up of each, then in turns
+            if turn == "run":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = system.run(host_batches(frames_np), seed=0)
+                torch.cuda.synchronize()
+                run_fps.append(len(frames_np) / (time.perf_counter() - t0))
+                continue
+            printed = io.StringIO()
+            reset_launch_counts()
+            with contextlib.redirect_stdout(printed):
+                rc = cli_main(argv)
+            cli_launches = launch_counts()
+            stats = json.loads(printed.getvalue().strip().splitlines()[-1])
+            if rc or stats["frames"] != len(frames_np):
+                raise AssertionError(f"[{label}] CLI exit {rc}, stats {stats}")
+            cli_fps.append(stats["fps"])
+        save_state(tmp / "run.npz", slam=out["checkpoint"])
+        cli_ck, run_ck = np.load(tmp / "cli.npz"), np.load(tmp / "run.npz")
+        if sorted(cli_ck.files) != sorted(run_ck.files):
+            raise AssertionError(f"[{label}] the CLI's checkpoint and run()'s hold different leaves")
+        for k in run_ck.files:
+            a, b = cli_ck[k], run_ck[k]
+            if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+                raise AssertionError(f"[{label}] the CLI over the JPEG directory != run() over the twin's frames: "
+                                     f"leaf {k}")
+        if float(out["pose_ok"][1:].mean()) < 0.9:
+            raise AssertionError(f"[{label}] run: pose_ok {float(out['pose_ok'][1:].mean()):.3f}")
+    n_chunks = len(frames_np) // BATCH
+    check_launches(f"{label} cli", cli_launches, {"fused_frontend_batch": n_chunks, "extract_brief_patches": n_chunks,
+                                                  "brief_own_bin_dots": n_chunks, "msac_scores": None,
+                                                  "fused_frontend_nms_batch": 0})
+    log(f"[{label}] --slam over {len(frames_np)} JPEG frames == SlamSystem.run over the twin's frames in memory: "
+        f"{len(run_ck.files)} checkpoint leaves bit-equal, pose_ok {float(out['pose_ok'][1:].mean()):.3f}; "
+        f"frames/s CLI {[round(x, 2) for x in cli_fps[1:]]} (--stats) and run() {[round(x, 2) for x in run_fps[1:]]} "
+        f"(after a warm-up of each, in turns: cli, run, run, cli): {np.mean(cli_fps[1:]) / np.mean(run_fps[1:]):.3f}x "
+        f"on {card}")
+    return {"decode": rates, "cli_fps": cli_fps[1:], "run_fps": run_fps[1:],
+            "cli_over_run": float(np.mean(cli_fps[1:]) / np.mean(run_fps[1:])), "leaves": len(run_ck.files),
+            "pose_ok": float(out["pose_ok"][1:].mean()), "cli_launches": cli_launches}
+
+
+ROUNDED = ("min_absolute_score", "relative_score_factor", "recall_envelope", "forward_false_candidate_rate")
+
+
+def same_result(label: str, got, want, path: str = "result") -> None:
+    """Tool result dicts equal: ints, bools and strings exactly, floats to 1e-5 (the rounded fields of
+    ``calibrate``'s result are held exactly by the caller)."""
+    if isinstance(want, dict):
+        if got.keys() != want.keys():
+            raise AssertionError(f"[{label}] {path}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            same_result(label, got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"[{label}] {path}: {len(got)} != {len(want)} entries")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_result(label, g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        if abs(got - want) > 1e-5:
+            raise AssertionError(f"[{label}] {path}: {got} != {want}")
+    elif got != want:
+        raise AssertionError(f"[{label}] {path}: {got!r} != {want!r}")
+
+
+def phase_vocab_tools(card: str) -> dict:
+    """``train_vocabulary`` (flat and a (16, 16) tree over the KITTI JPEG and a PNG loop directory, and
+    every augment operation), ``calibrate_vocabulary`` and ``eval_vocabulary`` (``configs/vocabulary.npz``
+    and the tree) on the card against the CPU: the arrays equal, the result dicts equal."""
+    from tpuslam_torch.config.schema import LoopClosureConfig
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.tools import calibrate_vocabulary, eval_vocabulary, train_vocabulary
+
+    label = "vocab-tools"
+    data = REPO / "tests" / "data"
+    dirs = [str(data / "torch_loader" / "jpeg_kitti"), str(data / "images_test_loop")]
+    seconds, launches = {}, {}
+    total = {k: 0 for k in KERNELS}
+
+    def on(name, dev, fn):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            out = fn()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        seconds[f"{name} {dev}"] = time.perf_counter() - t0
+        if dev == "cuda":
+            launches[name] = launch_counts()
+            for k, v in launches[name].items():
+                total[k] += v
+        return out, printed.getvalue()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vocab_") as tmp:
+        tmp = Path(tmp)
+        for kind, extra in (("flat", []), ("tree", ["--tree", "16,16"])):
+            for dev in ("cuda", "cpu"):
+                on(f"train_vocabulary {kind}", dev, lambda: train_vocabulary.main(
+                    [*dirs, "-o", str(tmp / f"{kind}_{dev}.npz"), *extra, "--device", dev]))
+            got, want = np.load(tmp / f"{kind}_cuda.npz"), np.load(tmp / f"{kind}_cpu.npz")
+            if sorted(got.files) != sorted(want.files) or any(not np.array_equal(got[k], want[k]) for k in want.files):
+                raise AssertionError(f"[{label}] train_vocabulary {kind}: the card's arrays != the CPU's")
+    frame = torch.from_numpy(load_frames(1)[0])
+    card_vars = list(train_vocabulary.variants(frame.cuda(), 9, 0))
+    cpu_vars = list(train_vocabulary.variants(frame, 9, 0))
+    if any(not torch.equal(g.cpu(), c) for g, c in zip(card_vars, cpu_vars)):
+        raise AssertionError(f"[{label}] an augment operation differs between the card and the CPU")
+    lc_cfg = LoopClosureConfig.from_yaml(REPO / "configs" / "loop_closure.yml")
+    results = {}
+    for vocab in ("configs/vocabulary.npz", "configs/vocabulary_tree.npz"):
+        for tool, fn in (("calibrate_vocabulary", calibrate_vocabulary.calibrate),
+                         ("eval_vocabulary", eval_vocabulary.evaluate)):
+            name = f"{tool} {Path(vocab).stem}"
+            got, _ = on(name, "cuda", lambda: fn(REPO / vocab, lc_cfg, device="cuda"))
+            want, _ = on(name, "cpu", lambda: fn(REPO / vocab, lc_cfg, device="cpu"))
+            same_result(f"{label} {name}", got, want)
+            if tool == "calibrate_vocabulary" and any(got.get(k) != want.get(k) for k in ROUNDED):
+                raise AssertionError(f"[{label}] {name}: rounded fields {got} != {want}")
+            results[name] = got
+    for name in launches:
+        if launches[name]["fused_frontend_batch"] == 0 or any(
+                launches[name][k] for k in KERNELS if k != "fused_frontend_batch"):
+            raise AssertionError(f"[{label}] {name}: launches {launches[name]} (kernel 1 only, BRIEF bins 0)")
+    log(f"[{label}] train_vocabulary (flat 256 words, tree 16x16) over {len(dirs)} directories (JPEG, PNG) and "
+        f"the 9 augment operations: card == CPU; calibrate_vocabulary and eval_vocabulary with "
+        f"vocabulary.npz and vocabulary_tree.npz: card == CPU ({results['calibrate_vocabulary vocabulary_tree']})")
+    log(f"[{label}] seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + f" on {card}")
+    log(f"[{label}] kernel 1 launches on the card: "
+        + ", ".join(f"{k} {v['fused_frontend_batch']}" for k, v in launches.items()))
+    return {"seconds": seconds, "launches_by_tool": launches, "launches": total, "results": results}
 
 
 def phase_soak(card: str) -> dict:
@@ -3002,9 +3251,14 @@ def main() -> int:
     # The frame loader and the CLI over a directory, the soak past the keyframe ring, the stage profiles.
     t_new = time.perf_counter()
     loader = timed_phase("loader", phase_loader, camera, config_dir, frames_np, card)
+    t_jpeg = time.perf_counter()
+    jpeg = timed_phase("jpeg", phase_jpeg, camera, config_dir, loader.pop("jpeg_twin_frames"), card)
+    vocab_tools = timed_phase("vocab-tools", phase_vocab_tools, card)
+    log(f"[new phases] jpeg, vocab-tools took {time.perf_counter() - t_jpeg:.1f} s (and the JPEG checks of "
+        f"[loader] {loader['jpeg']['seconds']:.1f} s)")
     soak = timed_phase("soak", phase_soak, card)
     profile = timed_phase("profile", phase_profile, camera, config_dir, frames_np, card)
-    log(f"[new phases] loader, soak, profile took {time.perf_counter() - t_new:.1f} s")
+    log(f"[new phases] loader, jpeg, vocab-tools, soak, profile took {time.perf_counter() - t_new:.1f} s")
 
     for r in records:
         on_pyramid = r["name"] == "fused_frontend_nms_batch"
@@ -3030,6 +3284,8 @@ def main() -> int:
                                  "multiseq_vo": multiseq_vo["launches"][r["name"]],
                                  "workers_multiseq": workers["launches"][r["name"]],
                                  "cli_directory": loader["cli_launches"][r["name"]],
+                                 "cli_jpeg": jpeg["cli_launches"][r["name"]],
+                                 "vocab_tools": vocab_tools["launches"][r["name"]],
                                  "soak": soak["launches"][r["name"]]}
         if r["name"] in timeshard["kernels_at_batch"]:
             r["timeshard_batch_shape"] = timeshard["kernels_at_batch"][r["name"]]
@@ -3067,7 +3323,8 @@ def main() -> int:
                     "slam_lc_pnp": slam_lc["pnp"], "pose_graph_pcg": pose_graph, "stream": stream["vo"],
                     "stream_pnp": stream["pnp"], "localize": localize, "timeshard": timeshard,
                     "timeshard_slam": ts_slam["vo"], "timeshard_slam_pnp": ts_slam["pnp"], "multiseq": multiseq, "multiseq_vo": multiseq_vo,
-                    "workers": workers, "cli_timeshard": cli_ts, "loader": loader, "soak": soak, "profile": profile}))
+                    "workers": workers, "cli_timeshard": cli_ts, "loader": loader, "jpeg": jpeg,
+                    "vocab_tools": vocab_tools, "soak": soak, "profile": profile}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -2,10 +2,10 @@
 
 The reference's ``NativeFrameLoader`` is the committed
 ``native/build/libtpuslam_frameloader.so`` (libpng, libjpeg); the port's is
-``tpuslam_torch/native/frameloader.cpp`` (PNG over zlib, libjpeg where the
-machine has it), built here at first use.  On every fixture directory —
+``tpuslam_torch/native/frameloader.cpp`` (PNG over zlib, JPEG with its own
+decoder, no libjpeg), built here at first use.  On every fixture directory —
 the four of the reference and ``tests/data/torch_loader``'s PNG filters,
-JPEG and formats (16-bit gray, palette with tRNS, 4-bit gray) — the two
+JPEG, KITTI JPEG and formats (16-bit gray, palette with tRNS, 4-bit gray) — the two
 return identical bytes, and the port's plain decoder (``decode_png_gray8``)
 agrees with the loader on every PNG.  The interlaced fixture decodes to its
 source image, as the reference's OpenCV path does; the reference's loader
@@ -24,7 +24,7 @@ from tpuslam_torch.pre import native_loader
 from tpuslam_torch.pre.stream import FrameStream, PngError, decode_png_gray8
 
 DIRS = ["images", "images_test_loop", "images_test_loop2", "test_images",
-        "torch_loader/filters", "torch_loader/jpeg", "torch_loader/formats"]
+        "torch_loader/filters", "torch_loader/jpeg", "torch_loader/formats", "torch_loader/jpeg_kitti"]
 
 
 def gray_of(rgb: np.ndarray) -> np.ndarray:
@@ -42,7 +42,7 @@ def test_loader_matches_reference(data_dir, name):
     np.testing.assert_array_equal(got.decode_batch(0, got.n_frames), want.decode_batch(0, want.n_frames))
 
 
-@pytest.mark.parametrize("name", [d for d in DIRS if d != "torch_loader/jpeg"] + ["torch_loader/interlaced"])
+@pytest.mark.parametrize("name", [d for d in DIRS if "jpeg" not in d] + ["torch_loader/interlaced"])
 def test_plain_decoder_matches_loader(data_dir, name):
     loader = native_loader.NativeFrameLoader(data_dir / name)
     frames = loader.decode_batch(0, loader.n_frames)
@@ -63,8 +63,8 @@ def test_interlaced_decodes_to_its_source(data_dir):
 def test_jpeg_matches_reference_libjpeg(data_dir):
     """Bit for bit with the reference's libjpeg decode; within a level of OpenCV's."""
     path = data_dir / "torch_loader" / "jpeg"
-    assert native_loader.has_jpeg()
     got = native_loader.NativeFrameLoader(path).decode_batch(0, 2)
+    np.testing.assert_array_equal(got, ref_loader.NativeFrameLoader(path).decode_batch(0, 2))
     for frame, p in zip(got, sorted(path.glob("*.jpg"))):
         want = cv2.imread(str(p), cv2.IMREAD_GRAYSCALE)
         assert np.abs(frame.astype(int) - want.astype(int)).max() <= 1
@@ -161,11 +161,16 @@ def test_corrupt_and_mismatched_frames_are_named(tmp_path, kitti_frames):
         decode_png_gray8(tmp_path / "1.png")
 
 
-def test_jpeg_without_libjpeg_raises_at_open(data_dir, monkeypatch):
-    lib = native_loader.library()
-    monkeypatch.setattr(lib, "fl_has_jpeg", lambda: 0)
-    with pytest.raises(native_loader.FrameDecodeError, match="no libjpeg"):
-        native_loader.NativeFrameLoader(data_dir / "torch_loader" / "jpeg")
+def test_jpeg_decodes_without_a_libjpeg_build_flag(data_dir):
+    """The loader builds with the same flags everywhere (no libjpeg probe, no JPEG define or library) and
+    decodes JPEG with its own decoder to the reference's libjpeg bytes."""
+    lib = native_loader.build_library(native_loader._compiler())
+    command = lib.with_suffix(".log").read_text().splitlines()[0]
+    assert "jpeg" not in command.lower() and "-lz" in command
+    assert not any("jpeg" in f.lower() for f in native_loader.CXX_FLAGS + native_loader.LIBS)
+    path = data_dir / "torch_loader" / "jpeg_kitti"
+    np.testing.assert_array_equal(native_loader.NativeFrameLoader(path).decode_batch(0, 3),
+                                  ref_loader.NativeFrameLoader(path).decode_batch(0, 3))
 
 
 def test_no_silent_fallback(data_dir, tmp_path, monkeypatch):

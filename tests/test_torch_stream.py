@@ -5,7 +5,8 @@ The reference's stream decodes through its native loader (the committed
 ``use_native=False``, through ``decode_png_gray8``.  ``read_frame``,
 ``__iter__`` with ``frame_skip``, ``batches`` (padding, ``valid``,
 timestamps, ``start_frame``) and ``frames_to_memmap`` give the reference's
-bytes.  ``test_frame_stream_reads_colour_fixtures`` is the colour repair:
+bytes, JPEG included (the reference's libjpeg, the port's own decoder).
+``test_frame_stream_reads_colour_fixtures`` is the colour repair:
 the port used to refuse the RGBA loop fixture and the RGB test images.
 """
 
@@ -15,10 +16,11 @@ import pytest
 from tpuslam.pre.stream import FrameStream as JFrameStream
 from tpuslam.pre.stream import frames_to_memmap as j_frames_to_memmap
 from tpuslam_torch.pre import stream as tstream
+from tpuslam_torch.pre.native_loader import FrameDecodeError
 from tpuslam_torch.pre.stream import FrameStream, frames_to_memmap
 
 DIRS = ["images", "images_test_loop", "images_test_loop2", "test_images",
-        "torch_loader/filters", "torch_loader/jpeg", "torch_loader/formats"]
+        "torch_loader/filters", "torch_loader/jpeg", "torch_loader/formats", "torch_loader/jpeg_kitti"]
 
 
 def test_frame_stream_reads_colour_fixtures(data_dir):
@@ -103,9 +105,16 @@ def test_native_never_decodes_in_python(data_dir, monkeypatch):
     assert st.read_frame(3)[0].shape == (512, 1392)
 
 
-def test_plain_decoder_refuses_jpeg(data_dir):
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        FrameStream(data_dir / "torch_loader" / "jpeg", use_native=False).read_frame(0)
+@pytest.mark.parametrize("name", ["torch_loader/jpeg", "torch_loader/jpeg_variants"])
+def test_plain_decoder_reads_jpeg(data_dir, name):
+    """``use_native=False`` reads JPEG through ``decode_jpeg_gray8``, equal to the loader; both refuse CMYK."""
+    native, plain = FrameStream(data_dir / name), FrameStream(data_dir / name, use_native=False)
+    assert plain._native is None
+    good = [i for i, p in enumerate(native._files) if p.stem[:2] not in ("98", "99")]
+    np.testing.assert_array_equal(plain.read_frames(good), native.read_frames(good))
+    if len(good) < native.total_frames:
+        with pytest.raises(FrameDecodeError, match="CMYK"):
+            plain.read_frames([good[-1] + 1])
 
 
 def test_empty_directory_has_no_frames(tmp_path):

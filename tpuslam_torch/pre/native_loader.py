@@ -5,14 +5,16 @@ Port of ``tpuslam/pre/native_loader.py``.  The C++ source is the port's own
 with ``c++ -O3 -std=c++17 -fPIC`` at first use into ``build/tpuslam_torch/``
 at the repository root, under a file name keyed on a hash of the source,
 flags and libraries — never at import, and never with ``-march=native``, so
-a build is only loaded where its key says it belongs.  JPEG support is
-compiled in where the machine has libjpeg (a probe compile decides);
-without it a directory of JPEG frames raises at open.
+a build is only loaded where its key says it belongs.  It links zlib and
+nothing else: PNG inflates through zlib, and JPEG decodes with the source's
+own decoder to libjpeg's gray bytes, the same code on every machine.
 
 There is no fallback: a failed build raises ``LoaderBuildError`` naming the
 compiler's log, and a frame that does not decode raises
-``FrameDecodeError`` naming the file.  ``pre/stream.py::decode_png_gray8``
-is the loader's plain version, used only where the caller asks for it
+``FrameDecodeError`` naming the file and the reason — for a JPEG variant the
+decoder refuses, the variant (``JPEG_REFUSED``), at open when it is the
+first frame.  ``pre/stream.py::decode_png_gray8`` and ``pre/jpeg.py::decode_jpeg_gray8``
+are the loader's plain versions, used only where the caller asks for them
 (``FrameStream(use_native=False)``).
 """
 
@@ -32,10 +34,6 @@ from tpuslam_torch.kernels.build import BUILD_DIR
 SOURCE = Path(__file__).resolve().parent.parent / "native" / "frameloader.cpp"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall", "-Wextra")
 LIBS = ("-lz", "-lpthread")
-JPEG = (("-DTPUSLAM_HAVE_JPEG",), ("-ljpeg",))  # added flags and libraries where libjpeg links
-_JPEG_PROBE = ("#include <cstdio>\n#include <jpeglib.h>\n"
-               "int main() { jpeg_decompress_struct c; jpeg_error_mgr e; c.err = jpeg_std_error(&e);\n"
-               "  jpeg_create_decompress(&c); jpeg_destroy_decompress(&c); return 0; }\n")
 FRAME_SUFFIXES = (".png", ".jpg", ".jpeg")  # a directory's frames, as the reference lists them
 STATUS = {
     1: "cannot open the file",
@@ -43,8 +41,20 @@ STATUS = {
     3: "corrupt, or not a PNG/JPEG frame the loader reads",
     4: "its size differs from the first frame's",
     5: "frame index out of range",
-    6: "a JPEG frame, and this machine's build of the loader has no libjpeg",
 }
+# The JPEG variants the decoders refuse (``frameloader.cpp::JpegStatus``), by status.
+JPEG_REFUSED = {
+    6: "arithmetic-coded JPEG (SOF9-11) is not supported",
+    7: "lossless JPEG (SOF3) is not supported",
+    8: "JPEG samples of other than 8 bits (12-bit) are not supported",
+    9: "hierarchical JPEG (SOF5-7, SOF13-15) is not supported",
+    10: "a JPEG of other than one or three components (CMYK, YCCK) is not supported",
+    11: "an RGB JPEG (Adobe transform 0, or components R, G, B) is not supported",
+    12: "a JPEG whose luma is sampled below another component is not supported",
+    13: "a JPEG whose height is given by a DNL marker is not supported",
+    14: "a progressive JPEG that leaves luma's AC 1-9 unrefined (libjpeg smooths it) is not supported",
+}
+STATUS.update(JPEG_REFUSED)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -53,7 +63,7 @@ _SIGNATURES = {
     "fl_decode_batch": (_I, (_P, _I, _I, _P)),
     "fl_decode_indices": (_I, (_P, _IP, _I, _P, _IP)),
     "fl_threads": (_I, (_P,)),
-    "fl_has_jpeg": (_I, ()),
+    "fl_probe": (_I, (ctypes.c_char_p, _IP, _IP)),
     "fl_close": (None, (_P,)),
 }
 
@@ -70,26 +80,10 @@ def _compiler() -> str | None:
     return shutil.which("c++")
 
 
-def _links_libjpeg(cxx: str) -> bool:
-    """Whether a program using libjpeg compiles and links here."""
-    src = BUILD_DIR / f"jpeg_probe.{os.getpid()}.cpp"
-    exe = src.with_suffix(".out")
-    src.write_text(_JPEG_PROBE)
-    try:
-        proc = subprocess.run([cxx, "-std=c++17", str(src), "-o", str(exe), "-ljpeg"],
-                              capture_output=True, timeout=120)
-        return proc.returncode == 0
-    finally:
-        src.unlink(missing_ok=True)
-        exe.unlink(missing_ok=True)
-
-
 def build_library(cxx: str) -> Path:
     """Compile the loader if this exact build is not on disk; return the library's path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     flags, libs = CXX_FLAGS, LIBS
-    if _links_libjpeg(cxx):
-        flags, libs = flags + JPEG[0], libs + JPEG[1]
     h = hashlib.sha256(SOURCE.read_bytes())
     h.update(" ".join(flags + libs).encode())
     target = BUILD_DIR / f"libtpuslam_frameloader_{h.hexdigest()[:16]}.so"
@@ -135,11 +129,6 @@ def available() -> bool:
     return True
 
 
-def has_jpeg() -> bool:
-    """Whether this machine's build decodes JPEG (libjpeg was found)."""
-    return bool(library().fl_has_jpeg())
-
-
 class NativeFrameLoader:
     """Threaded batch decoder over a directory of .png/.jpg/.jpeg frames, in lexical order."""
 
@@ -149,13 +138,13 @@ class NativeFrameLoader:
         self.directory = Path(directory)
         self.files = sorted(p for p in self.directory.iterdir() if p.is_file()
                             and p.suffix.lower() in FRAME_SUFFIXES) if self.directory.is_dir() else []
-        jpegs = [p for p in self.files if p.suffix.lower() in (".jpg", ".jpeg")]
-        if jpegs and not self._lib.fl_has_jpeg():
-            raise FrameDecodeError(f"{jpegs[0]}: {STATUS[6]}")
         n, h, w = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         self._handle = self._lib.fl_open_dir(str(directory).encode(), ctypes.byref(n), ctypes.byref(h),
                                              ctypes.byref(w))
         if not self._handle:
+            rc = self._lib.fl_probe(str(self.files[0]).encode(), ctypes.byref(h), ctypes.byref(w)) if self.files else 0
+            if rc in JPEG_REFUSED:
+                raise FrameDecodeError(f"{self.files[0]}: {JPEG_REFUSED[rc]}")
             why = f"the first frame {self.files[0]} cannot be read" if self.files else "no .png/.jpg/.jpeg frames"
             raise RuntimeError(f"Could not open frame directory: {directory} ({why})")
         self.n_frames, self.height, self.width = n.value, h.value, w.value

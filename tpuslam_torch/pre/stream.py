@@ -3,8 +3,11 @@
 Port of ``tpuslam/pre/stream.py`` (directory mode).  Frames decode to
 grayscale uint8 through the port's own threaded C++ loader
 (``pre/native_loader.py``, ``native/frameloader.cpp``) by default, or, with
-``use_native=False``, through ``decode_png_gray8``: the loader's plain
-version in numpy and the standard library's ``zlib``, which reads PNG only.
+``use_native=False``, through the loader's plain versions:
+``decode_png_gray8`` (numpy and the standard library's ``zlib``) and
+``decode_jpeg_gray8`` (``pre/jpeg.py``).  JPEG decodes in both to the bytes
+of the reference's libjpeg gray output, and the variants neither reads
+(``native_loader.JPEG_REFUSED``) raise ``FrameDecodeError`` naming them.
 Both accept every PNG the reference's loader accepts — bit depths 1 to 16;
 gray, gray + alpha, RGB, RGBA and palette; tRNS; Adam7 interlacing — and
 convert as it does: 16-bit samples keep their high byte, low-depth gray
@@ -34,6 +37,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from tpuslam_torch.pre.jpeg import decode_jpeg_gray8
 from tpuslam_torch.pre.native_loader import FRAME_SUFFIXES, NativeFrameLoader
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -232,7 +236,8 @@ class FrameStream:
     ``use_native`` (the default) decodes through the threaded C++ loader,
     built here at first use; a machine where it cannot be built raises
     (``LoaderBuildError``), never decoding in Python unasked.
-    ``use_native=False`` decodes with ``decode_png_gray8`` (PNG only).
+    ``use_native=False`` decodes with ``decode_png_gray8`` and
+    ``decode_jpeg_gray8``, the same bytes, slowly.
     """
 
     def __init__(self, stream_path: str | Path, frame_skip: int = 0, use_native: bool = True):
@@ -267,10 +272,7 @@ class FrameStream:
             return self._native.decode_indices(indices, out)
         for i, idx in enumerate(indices):
             path = self._files[idx]
-            if path.suffix.lower() != ".png":
-                raise NotImplementedError(f"{path}: the Python decoder reads PNG only; JPEG frames need "
-                                          "the native loader (use_native=True)")
-            frame = decode_png_gray8(path)
+            frame = decode_png_gray8(path) if path.suffix.lower() == ".png" else decode_jpeg_gray8(path)
             if out is None:
                 out = np.empty((len(indices), *frame.shape), np.uint8)
             out[i] = frame
