@@ -204,7 +204,7 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    loader, the plain twin ``decode_jpeg_gray8`` and the libjpeg bytes
    committed in ``expected_gray.npz`` agree, and the CMYK and SOF9
    variants raise their named ``FrameDecodeError`` from both; 96 frames written as adaptive-filter PNGs
-   (``encode_png``: Sub, Average and Paeth rows) decode to their source:
+   (``post/png.py::encode_png``: Sub, Average and Paeth rows) decode to their source:
    the native loader's ms a frame with its thread count, the plain
    decoder's on 4 of them and on the committed frames, ``FrameStream.batches``
    ms a chunk; the CLI's ``--slam`` over that directory (in this process,
@@ -225,14 +225,31 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    with ``configs/vocabulary.npz`` and ``vocabulary_tree.npz`` card == CPU
    (rounded fields exactly, other floats to 1e-5); seconds of each tool
    and kernel 1's launches (kernels 2-5 none: BRIEF bins 0);
-21. soak — ``tpuslam_torch/tools/soak.py``'s run: 1,536 frames (the ring of
+21. video — a Motion JPEG AVI of the 96 ping-pong KITTI JPEG payloads
+   (``write_mjpeg_avi``, below) beside a directory of links to the same
+   files: the video's frames (the loader's demuxer and decoder) equal the
+   loader's decode of the files, its chunks as the twin ``pre/avi.py`` lists
+   them, its timestamps i / 10 s; the committed writer fixtures
+   (``tests/data/torch_video/``: OpenCV's and FFmpeg's Motion JPEG) decode
+   through the loader and the twin to their committed libjpeg bytes, with no
+   OpenCV needed; decode ms a frame, one a call and 96 on the pool,
+   of the video beside the directory; the CLI's ``--slam --save-state
+   --plot`` over each in turns (video, directory, directory, video) and
+   VO with ``--plot`` over each: trajectories and every checkpoint leaf
+   bit-equal, kernels 1-3 six launches each and kernel 4 as in jpeg (VO:
+   kernels 1-4 six each), kernel 5 none; frames/s of both;
+22. plot — ``post/visualizer.py``: keypoints, matches and depth-coloured
+   points of one detector run on fixture frames 0 and 1 on the card drawn
+   equal to those of the CPU run; every PNG written, [video]'s ``--plot``
+   files among them, decodes through the port's loader to its drawn size;
+23. soak — ``tpuslam_torch/tools/soak.py``'s run: 1,536 frames (the ring of
    512 keyframes overflows three times), VO, the tree vocabulary, the
    redundancy policy: kernels 1-3 96 launches each, kernel 4 at least that,
    kernel 5 none; its pass rule (finite, ``pose_ok`` > 95%, >= 1 revisit
    loop into the prologue) and memory allocated flat from the ring's first
    overflow to the last chunk (within 16 MiB); the report, the memory after
    each chunk summarised;
-22. profile — ``tools/profile_stages.py`` on one main-path chunk and one
+24. profile — ``tools/profile_stages.py`` on one main-path chunk and one
    pyramid chunk (kernel 5) and ``tools/profile_slam.py`` (full SLAM in VO
    and PnP mode, localization against the PnP run's map) over the 96
    frames: their stage tables.
@@ -337,75 +354,63 @@ def load_frames(n_frames: int) -> np.ndarray:
     return np.stack([base[i] for i in idx])
 
 
-# --- a small PNG encoder (numpy + zlib): the adaptive-filter frames of [loader] and the loader tests' files ---
-PNG_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# --- a small RIFF writer: the Motion JPEG AVIs of [video] and the video tests' files ---
 
 
-def _png_chunk(kind: bytes, body: bytes) -> bytes:
+def _riff_chunk(fcc: bytes, body: bytes) -> bytes:
     import struct
-    import zlib
 
-    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
-
-
-def _png_rows(samples: np.ndarray, depth: int) -> np.ndarray:
-    """(h, w, c) samples → (h, row bytes) packed rows: big-endian 16-bit, or bits most significant first."""
-    h, w, c = samples.shape
-    if depth == 16:
-        return samples.astype(">u2").view(np.uint8).reshape(h, w * c * 2)
-    if depth == 8:
-        return samples.astype(np.uint8).reshape(h, w * c)
-    bits = (samples.reshape(h, w * c, 1).astype(np.uint8) >> np.arange(depth - 1, -1, -1, dtype=np.uint8)) & 1
-    return np.packbits(bits.reshape(h, -1), axis=1)
+    return fcc + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
 
 
-def _png_filter(rows: np.ndarray, bpp: int, filters) -> bytes:
-    """Filter every row: each row's type from ``filters`` (an int a row), or, for "adaptive", libpng's
-    heuristic (the type whose bytes, read as signed, have the least absolute sum)."""
-    x = rows.astype(np.int16)
-    b = np.vstack([np.zeros_like(x[:1]), x[:-1]])
-    a = np.hstack([np.zeros_like(x[:, :bpp]), x[:, :-bpp]])
-    c = np.hstack([np.zeros_like(b[:, :bpp]), b[:, :-bpp]])
-    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
-    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    out = np.stack([x, x - a, x - b, x - (a + b) // 2, x - paeth]).astype(np.uint8)  # (5, h, n)
-    if isinstance(filters, str):
-        cost = np.abs(out.view(np.int8).astype(np.int32)).sum(axis=2)
-        filters = np.argmin(cost, axis=0)
-    filters = np.asarray(filters)
-    chosen = out[filters, np.arange(len(filters))]
-    return np.hstack([filters[:, None].astype(np.uint8), chosen]).tobytes()
+def _riff_list(kind: bytes, body: bytes, fcc: bytes = b"LIST") -> bytes:
+    import struct
+
+    return fcc + struct.pack("<I", len(body) + 4) + kind + body
 
 
-def encode_png(samples: np.ndarray, colour: int = 0, depth: int = 8, filters="adaptive", interlace: bool = False,
-               palette: np.ndarray | None = None, trns: bytes | None = None, level: int = 6) -> bytes:
-    """A PNG file of ``samples`` ((h, w) or (h, w, channels) at ``depth`` bits) of colour type ``colour``.
+def write_mjpeg_avi(path, payloads: list[bytes], width: int, height: int, scale: int = 1, rate: int = 10,
+                    frames_per_riff: int = 0, handler: bytes = b"MJPG", fields: int = 1) -> Path:
+    """An AVI of one video stream whose frames are the JPEG ``payloads``, at ``rate / scale`` frames a second.
 
-    ``filters``: "adaptive" or a row filter type for each row (of each
-    Adam7 pass in turn when ``interlace``: then the pattern repeats).
+    The file is "RIFF" "AVI " (hdrl: avih, one strl with strh, strf and, with
+    ``fields`` 2, an OpenDML vprp saying two fields a frame; odml: dmlh with
+    the total; movi: one "00dc" chunk a frame; idx1 over this RIFF's frames),
+    then, when ``frames_per_riff`` is set, one "RIFF" "AVIX" of a movi list a
+    further ``frames_per_riff`` frames, as OpenDML continues files past 1 GB.
+    A payload of zero bytes is a dropped frame.
     """
     import struct
-    import zlib
 
-    samples = np.asarray(samples)
-    if samples.ndim == 2:
-        samples = samples[..., None]
-    h, w, ch = samples.shape
-    bpp = max(1, depth * ch // 8)
-    parts = [samples] if not interlace else [samples[y0::dy, x0::dx] for x0, y0, dx, dy in PNG_ADAM7]
-    raw = b""
-    for part in parts:
-        if part.size == 0:
+    path = Path(path)
+    n = len(payloads)
+    per = frames_per_riff or max(n, 1)
+    groups = [payloads[i : i + per] for i in range(0, n, per)] or [[]]
+    largest = max((len(p) for p in payloads), default=0)
+    avih = struct.pack("<14I", round(1e6 * scale / rate), 0, 0, 0x110, len(groups[0]), 0, 1, largest, width, height,
+                       0, 0, 0, 0)
+    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", handler, 0, 0, 0, 0, scale, rate, 0, n, largest,
+                       0xFFFFFFFF, 0, 0, 0, width, height)
+    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, b"MJPG", width * height * 3, 0, 0, 0, 0)
+    strl = _riff_chunk(b"strh", strh) + _riff_chunk(b"strf", strf)
+    if fields != 1:
+        strl += _riff_chunk(b"vprp", struct.pack("<9I", 0, 0, rate // scale, width, height, 0x00010001, width,
+                                                 height, fields) + bytes(40))
+    hdrl = _riff_list(b"hdrl", _riff_chunk(b"avih", avih) + _riff_list(b"strl", strl)
+                      + _riff_list(b"odml", _riff_chunk(b"dmlh", struct.pack("<I", n) + bytes(244))))
+    out = b""
+    for g, group in enumerate(groups):
+        movi = _riff_list(b"movi", b"".join(_riff_chunk(b"00dc", p) for p in group))
+        if g:
+            out += _riff_list(b"AVIX", movi, b"RIFF")
             continue
-        f = filters if isinstance(filters, str) else np.resize(np.asarray(filters), part.shape[0])
-        raw += _png_filter(_png_rows(part, depth), bpp, f)
-    out = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0,
-                                                                   int(interlace)))
-    if palette is not None:
-        out += _png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
-    if trns is not None:
-        out += _png_chunk(b"tRNS", trns)
-    return out + _png_chunk(b"IDAT", zlib.compress(raw, level)) + _png_chunk(b"IEND", b"")
+        index, at = b"", 4
+        for p in group:
+            index += struct.pack("<4sIII", b"00dc", 0x10, at, len(p))
+            at += 8 + len(p) + (len(p) & 1)
+        out += _riff_list(b"AVI ", hdrl + movi + _riff_chunk(b"idx1", index), b"RIFF")
+    path.write_bytes(out)
+    return path
 
 
 def check_record(name, got, want, ms, plain_ms, exact, work) -> dict:
@@ -2723,6 +2728,8 @@ def write_adaptive_frames(frames_np: np.ndarray, directory: Path) -> None:
 
     The frames repeat the 10 fixtures, so each distinct frame is encoded once and its bytes copied.
     """
+    from tpuslam_torch.post.png import encode_png
+
     encoded: dict[bytes, bytes] = {}
     for i, f in enumerate(frames_np):
         key = f.tobytes()
@@ -2888,11 +2895,13 @@ def ping_pong(n_frames: int, n_base: int) -> list[int]:
     return [min(i % period, period - i % period) for i in range(n_frames)]
 
 
-def decode_rates(directory: Path) -> dict:
-    """The loader's ms a frame over a directory: one frame a call (one thread busy) and all in one call (the pool)."""
+def decode_rates(source: Path) -> dict:
+    """The loader's ms a frame over a directory or a video: one frame a call (one thread busy) and all in one
+    call (the pool)."""
     from tpuslam_torch.pre import native_loader
 
-    loader = native_loader.NativeFrameLoader(directory)
+    opener = native_loader.NativeVideoLoader if source.is_file() else native_loader.NativeFrameLoader
+    loader = opener(source)
     n = loader.n_frames
     loader.decode_indices(range(n))  # warm: the files in the page cache
     t0 = time.perf_counter()
@@ -2982,6 +2991,174 @@ def phase_jpeg(camera, config_dir: Path, twin_frames: dict, card: str) -> dict:
     return {"decode": rates, "cli_fps": cli_fps[1:], "run_fps": run_fps[1:],
             "cli_over_run": float(np.mean(cli_fps[1:]) / np.mean(run_fps[1:])), "leaves": len(run_ck.files),
             "pose_ok": float(out["pose_ok"][1:].mean()), "cli_launches": cli_launches}
+
+
+VIDEO_FIXTURES = {"opencv_mjpeg.avi": (1, 10), "ffmpeg_mjpeg.avi": (100, 2997)}  # dwScale, dwRate
+
+
+def check_video_fixtures(label: str) -> int:
+    """The committed writer fixtures (OpenCV's own Motion JPEG writer, FFmpeg's) through the loader and the twin,
+    held to the libjpeg bytes of ``tests/data/torch_video/expected_luma.npz``, without OpenCV."""
+    from tpuslam_torch.pre import native_loader
+    from tpuslam_torch.pre.avi import open_avi
+
+    d = REPO / "tests" / "data" / "torch_video"
+    expected = np.load(d / "expected_luma.npz")
+    for name, time_base in VIDEO_FIXTURES.items():
+        loader = native_loader.NativeVideoLoader(d / name)
+        twin = open_avi(d / name)
+        if (loader.scale, loader.rate) != time_base or loader.n_frames != len(expected[name]):
+            raise AssertionError(f"[{label}] {name}: time base {loader.scale}/{loader.rate}, {loader.n_frames} frames")
+        if not np.array_equal(loader.decode_batch(0, loader.n_frames), expected[name]) or any(
+                not np.array_equal(twin.decode(i), expected[name][i]) for i in range(twin.n_frames)):
+            raise AssertionError(f"[{label}] {name}: not the libjpeg bytes committed in expected_luma.npz")
+        loader.close()
+    return len(VIDEO_FIXTURES)
+
+
+def phase_video(config_dir: Path, twin_frames: dict, card: str) -> dict:
+    """A Motion JPEG AVI of the 96 ping-pong KITTI JPEGs (``write_mjpeg_avi``) beside a directory of links to
+    the same files: the frames equal, decode ms a frame of each, and the CLI's ``--slam`` (with
+    ``--save-state``) and VO over each with ``--plot``, in turns: trajectories and checkpoint leaves bit-equal."""
+    from tpuslam_torch.cli import main as cli_main
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.pre import native_loader
+    from tpuslam_torch.pre.avi import open_avi
+    from tpuslam_torch.pre.stream import FrameStream
+
+    label = "video"
+    src = REPO / "tests" / "data" / "torch_loader" / "jpeg_kitti"
+    names = sorted(twin_frames)
+    idx = ping_pong(N_FRAMES, len(names))
+    n_fixtures = check_video_fixtures(label)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as tmp:
+        tmp = Path(tmp)
+        jdir = tmp / "jpeg"
+        jdir.mkdir()
+        for i, k in enumerate(idx):
+            (jdir / f"{i:06d}.jpg").symlink_to(src / names[k])
+        avi = write_mjpeg_avi(tmp / "kitti.avi", [(src / names[k]).read_bytes() for k in idx], 1392, 512)
+        video = native_loader.NativeVideoLoader(avi)
+        frames = video.decode_batch(0, video.n_frames)
+        twin = open_avi(avi)
+        same = np.array_equal(frames, native_loader.NativeFrameLoader(jdir).decode_batch(0, N_FRAMES)) and all(
+            np.array_equal(frames[i], twin_frames[names[k]]) for i, k in enumerate(idx))
+        if video.n_frames != N_FRAMES or not same or not np.array_equal(twin.offsets, video.offsets):
+            raise AssertionError(f"[{label}] the video's frames differ from the loader's decode of the JPEG files")
+        stream = FrameStream(avi)
+        last, stamp = stream.read_frame(N_FRAMES - 1)
+        if stream.total_frames != N_FRAMES or stamp != (N_FRAMES - 1) / 10 or not np.array_equal(last, frames[-1]):
+            raise AssertionError(f"[{label}] FrameStream: {stream.total_frames} frames, stamps {stream._timestamps[:3]}")
+        stream.close()
+        video.close()
+        rates = {"video": decode_rates(avi), "jpeg": decode_rates(jdir)}
+        log(f"[{label}] decode ms a 1392x512 frame, one frame a call / all {N_FRAMES} in one call on "
+            f"{rates['video']['threads']} threads: the Motion JPEG AVI {rates['video']['one_thread_ms']:.2f} / "
+            f"{rates['video']['pool_ms']:.2f}, the directory of the same JPEGs {rates['jpeg']['one_thread_ms']:.2f} / "
+            f"{rates['jpeg']['pool_ms']:.2f} on {card}")
+
+        def cli(source: Path, name: str, *extra: str) -> tuple[dict, dict]:
+            printed = io.StringIO()
+            reset_launch_counts()
+            with contextlib.redirect_stdout(printed):
+                rc = cli_main(["-c", str(config_dir), "-v", str(source), "--batch-size", str(BATCH), "--stats",
+                               "-o", str(tmp / f"{name}.txt"), "--plot", str(tmp / f"{name}.png"), *extra])
+            stats = json.loads(printed.getvalue().strip().splitlines()[-1])
+            if rc or stats["frames"] != N_FRAMES:
+                raise AssertionError(f"[{label}] CLI {name}: exit {rc}, stats {stats}")
+            return stats, launch_counts()
+
+        sources = {"video": avi, "directory": jdir}
+        fps = {"video": [], "directory": []}
+        slam_launches = {}
+        for turn in ("video", "directory", "directory", "video"):
+            stats, slam_launches[turn] = cli(sources[turn], f"slam_{turn}", "--slam", "--save-state",
+                                             str(tmp / f"slam_{turn}.npz"))
+            fps[turn].append(stats["fps"])
+        vo_launches = {turn: cli(sources[turn], f"vo_{turn}")[1] for turn in sources}
+        for kind in ("slam", "vo"):
+            if (tmp / f"{kind}_video.txt").read_bytes() != (tmp / f"{kind}_directory.txt").read_bytes():
+                raise AssertionError(f"[{label}] {kind}: the trajectory over the video != over the directory")
+        ck = {turn: np.load(tmp / f"slam_{turn}.npz") for turn in sources}
+        if sorted(ck["video"].files) != sorted(ck["directory"].files) or any(
+                ck["video"][k].tobytes() != ck["directory"][k].tobytes() or ck["video"][k].dtype != ck["directory"][k].dtype
+                for k in ck["video"].files):
+            raise AssertionError(f"[{label}] --slam: a checkpoint leaf over the video != over the directory")
+        plots = {name: (tmp / f"{name}.png").read_bytes() for name in ("slam_video", "vo_video")}
+    n_chunks = N_FRAMES // BATCH
+    for turn in sources:
+        check_launches(f"{label} --slam {turn}", slam_launches[turn],
+                       {"fused_frontend_batch": n_chunks, "extract_brief_patches": n_chunks,
+                        "brief_own_bin_dots": n_chunks, "msac_scores": None, "fused_frontend_nms_batch": 0})
+        check_launches(f"{label} vo {turn}", vo_launches[turn],
+                       {**{k: n_chunks for k in ("fused_frontend_batch", "extract_brief_patches",
+                                                 "brief_own_bin_dots", "msac_scores")}, "fused_frontend_nms_batch": 0})
+    if slam_launches["video"] != slam_launches["directory"]:
+        raise AssertionError(f"[{label}] --slam launches differ: {slam_launches}")
+    log(f"[{label}] the CLI over the video == over the directory: --slam trajectory and {len(ck['video'].files)} "
+        f"checkpoint leaves, VO trajectory, bit-equal; {n_fixtures} committed writer fixtures == their libjpeg bytes; "
+        f"frames/s --slam (--stats, in turns: video, directory, directory, video) video "
+        f"{[round(x, 2) for x in fps['video']]}, directory {[round(x, 2) for x in fps['directory']]}: "
+        f"{np.mean(fps['video']) / np.mean(fps['directory']):.3f}x on {card}")
+    return {"decode": rates, "cli_fps": fps, "video_over_directory": float(np.mean(fps["video"]) / np.mean(fps["directory"])),
+            "leaves": len(ck["video"].files), "cli_launches": slam_launches["video"], "vo_launches": vo_launches["video"],
+            "fixtures": n_fixtures, "plots": plots}
+
+
+def phase_plot(pipeline, frames_np: np.ndarray, plots: dict, card: str) -> dict:
+    """The visualizer: keypoints, matches and depth-coloured points of one detector run on the card drawn
+    equal to those of the same run on the CPU; every PNG written (these and [video]'s ``--plot`` files)
+    decodes through the port's loader to its drawn size."""
+    from tpuslam_torch.common.camera import undistort_image
+    from tpuslam_torch.frontend.detector import FeatureDetector
+    from tpuslam_torch.frontend.matcher import FeatureMatcher
+    from tpuslam_torch.post import visualizer
+    from tpuslam_torch.pre import native_loader
+
+    label = "plot"
+    cfg = pipeline.config
+    idx, ok = pipeline.undistort_idx, pipeline.undistort_valid
+    frames = torch.from_numpy(frames_np[:2].copy())
+    runs = {}
+    for key, det in (("card", pipeline.detector), ("cpu", FeatureDetector(cfg.detector, device="cpu"))):
+        dev = det.device
+        und = [undistort_image(frames[i].to(dev), idx.to(dev), ok.to(dev), normalize=False) for i in (0, 1)]
+        kd, dd = zip(*(det.detect_and_compute(u) for u in und))
+        m = FeatureMatcher(cfg.matcher).match(dd[0], dd[1], kd[0], kd[1])
+        runs[key] = (und[0].cpu().numpy(), und[1].cpu().numpy(), kd, m)
+    drawn, ms = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plot_") as tmp:
+        tmp = Path(tmp)
+        for key, (img0, img1, kd, m) in runs.items():
+            t0 = time.perf_counter()
+            drawn[key] = {
+                "keypoints": visualizer.draw_keypoints(img0, kd[0], tmp / f"keypoints_{key}.png"),
+                "matches": visualizer.draw_matches(img0, kd[0], img1, kd[1], m, tmp / f"matches_{key}.png"),
+                "depth": visualizer.draw_depth_matches(img0, kd[0].xy, kd[0].response, kd[0].valid,
+                                                       tmp / f"depth_{key}.png"),
+            }
+            ms[key] = 1e3 * (time.perf_counter() - t0)
+        for name in drawn["card"]:
+            if not np.array_equal(drawn["card"][name], drawn["cpu"][name]):
+                raise AssertionError(f"[{label}] {name}: drawn from the card's run != from the CPU's")
+        want = {name: (visualizer.SIZE, visualizer.SIZE) for name in plots}
+        for name, data in plots.items():
+            (tmp / f"{name}.png").write_bytes(data)
+        for key, arrays in drawn.items():
+            want.update({f"{name}_{key}": a.shape[:2] for name, a in arrays.items()})
+        shapes = {}
+        for name, shape in want.items():  # each file alone: a directory's frames share one size
+            (tmp / name).mkdir()
+            (tmp / f"{name}.png").rename(tmp / name / "0.png")
+            img = native_loader.NativeFrameLoader(tmp / name).decode_indices([0])[0]
+            if img.shape != shape:
+                raise AssertionError(f"[{label}] {name}.png decodes to {img.shape}, drawn {shape}")
+            shapes[name] = list(img.shape)
+    n_kps, n_matches = int(runs["card"][2][0].valid.sum()), int(runs["card"][3].valid.sum())
+    log(f"[{label}] {n_kps} keypoints and {n_matches} matches of the card's detector run drawn == the CPU run's "
+        f"(keypoints, matches, depth-coloured points); {len(shapes)} PNGs, [video]'s --plot files among them, "
+        f"decode through the port's loader to their drawn size; drawing the three {ms['card']:.1f} ms on {card}")
+    return {"keypoints": n_kps, "matches": n_matches, "draw_ms": ms, "shapes": shapes}
 
 
 ROUNDED = ("min_absolute_score", "relative_score_factor", "recall_envelope", "forward_false_candidate_rate")
@@ -3252,13 +3429,18 @@ def main() -> int:
     t_new = time.perf_counter()
     loader = timed_phase("loader", phase_loader, camera, config_dir, frames_np, card)
     t_jpeg = time.perf_counter()
-    jpeg = timed_phase("jpeg", phase_jpeg, camera, config_dir, loader.pop("jpeg_twin_frames"), card)
+    twin_frames = loader.pop("jpeg_twin_frames")
+    jpeg = timed_phase("jpeg", phase_jpeg, camera, config_dir, twin_frames, card)
     vocab_tools = timed_phase("vocab-tools", phase_vocab_tools, card)
     log(f"[new phases] jpeg, vocab-tools took {time.perf_counter() - t_jpeg:.1f} s (and the JPEG checks of "
         f"[loader] {loader['jpeg']['seconds']:.1f} s)")
+    t_video = time.perf_counter()
+    video = timed_phase("video", phase_video, config_dir, twin_frames, card)
+    plot = timed_phase("plot", phase_plot, pipeline, frames_np, video.pop("plots"), card)
+    log(f"[new phases] video, plot took {time.perf_counter() - t_video:.1f} s")
     soak = timed_phase("soak", phase_soak, card)
     profile = timed_phase("profile", phase_profile, camera, config_dir, frames_np, card)
-    log(f"[new phases] loader, jpeg, vocab-tools, soak, profile took {time.perf_counter() - t_new:.1f} s")
+    log(f"[new phases] loader, jpeg, vocab-tools, video, plot, soak, profile took {time.perf_counter() - t_new:.1f} s")
 
     for r in records:
         on_pyramid = r["name"] == "fused_frontend_nms_batch"
@@ -3285,6 +3467,8 @@ def main() -> int:
                                  "workers_multiseq": workers["launches"][r["name"]],
                                  "cli_directory": loader["cli_launches"][r["name"]],
                                  "cli_jpeg": jpeg["cli_launches"][r["name"]],
+                                 "video": video["cli_launches"][r["name"]],
+                                 "video_vo": video["vo_launches"][r["name"]],
                                  "vocab_tools": vocab_tools["launches"][r["name"]],
                                  "soak": soak["launches"][r["name"]]}
         if r["name"] in timeshard["kernels_at_batch"]:
@@ -3323,7 +3507,7 @@ def main() -> int:
                     "slam_lc_pnp": slam_lc["pnp"], "pose_graph_pcg": pose_graph, "stream": stream["vo"],
                     "stream_pnp": stream["pnp"], "localize": localize, "timeshard": timeshard,
                     "timeshard_slam": ts_slam["vo"], "timeshard_slam_pnp": ts_slam["pnp"], "multiseq": multiseq, "multiseq_vo": multiseq_vo,
-                    "workers": workers, "cli_timeshard": cli_ts, "loader": loader, "jpeg": jpeg,
+                    "workers": workers, "cli_timeshard": cli_ts, "loader": loader, "jpeg": jpeg, "video": video, "plot": plot,
                     "vocab_tools": vocab_tools, "soak": soak, "profile": profile}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,7 @@
   (the two of ``jpeg/``, the ten of ``jpeg_kitti/`` and the variants).  A
   machine without libjpeg holds the port's decoder to libjpeg with it.
 
-The PNG encoder is ``chip_smoke.encode_png`` (numpy and zlib; PIL writes
+The PNG encoder is ``tpuslam_torch.post.png.encode_png`` (numpy and zlib; PIL writes
 no interlaced or 4-bit gray PNG).
 """
 
@@ -44,7 +44,7 @@ from PIL import Image
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from chip_smoke import encode_png  # noqa: E402
+from tpuslam_torch.post.png import encode_png  # noqa: E402
 
 DATA = REPO / "tests" / "data"
 OUT = DATA / "torch_loader"

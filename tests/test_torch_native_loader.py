@@ -10,7 +10,7 @@ return identical bytes, and the port's plain decoder (``decode_png_gray8``)
 agrees with the loader on every PNG.  The interlaced fixture decodes to its
 source image, as the reference's OpenCV path does; the reference's loader
 reads its Adam7 pass rows as image rows (ROADMAP F5).  Files written here by
-``chip_smoke.encode_png`` cover every colour type and bit depth,
+``tpuslam_torch.post.png.encode_png`` cover every colour type and bit depth,
 interlaced or not, against the conversion computed in numpy.
 """
 
@@ -18,7 +18,7 @@ import cv2
 import numpy as np
 import pytest
 
-from chip_smoke import encode_png
+from tpuslam_torch.post.png import encode_png
 from tpuslam.pre import native_loader as ref_loader
 from tpuslam_torch.pre import native_loader
 from tpuslam_torch.pre.stream import FrameStream, PngError, decode_png_gray8

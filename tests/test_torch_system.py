@@ -179,7 +179,7 @@ def test_unported_options_raise(data_dir):
     loc = TSystem(cam, cfg, vocabulary=None, tracking="pnp", localization_only=True, device="cpu")
     with pytest.raises(ValueError, match="warm_start"):
         loc.run_sequence(np.zeros((1, 8, 8), np.uint8), warm_start={"db": None})
-    for flag in (["--timeshard", "2", "--resume", "state.npz"], ["--plot", "plot.png"]):
+    for flag in (["--timeshard", "2", "--resume", "state.npz"], ["--plot", "plot.jpg"]):
         with pytest.raises(SystemExit):
             cli_main(["-c", str(cfg_dir), "-v", str(data_dir / "images"), "--device", "cpu", *flag])
 

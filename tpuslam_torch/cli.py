@@ -1,13 +1,15 @@
-"""tpuslam_torch CLI — monocular tracking or full SLAM over an image directory.
+"""tpuslam_torch CLI — monocular tracking or full SLAM over an image directory or a video.
 
-The subset of ``tools/cli.py`` the port runs::
+The port of ``tools/cli.py``::
 
     python -m tpuslam_torch.cli -c configs -v tests/data/images -o traj.txt \\
         [--tracking vo|pnp] [--batch-size 16] [--stats] [--device cpu] [--nms-fused] \\
         [--slam [--vocabulary V]] [--save-state S.npz] [--resume S.npz] [--localize S.npz] \\
-        [--timeshard N] [--debug]
+        [--timeshard N] [--plot traj.png] [--debug]
 
-writes a KITTI-format trajectory (12 values per row).  It runs on the card
+reads the frames of ``-v``, a directory of PNG or JPEG frames or a Motion
+JPEG AVI (``pre/stream.py``; any other video raises, naming why), in every
+mode, and writes a KITTI-format trajectory (12 values per row).  It runs on the card
 unless ``--device cpu`` is given; without a card it fails.  ``--stats`` prints
 one JSON line with the frame count, wall time and pose statistics;
 ``--debug`` logs at the DEBUG level.
@@ -35,7 +37,8 @@ graph.  The segments spread over the first min(N, visible cards) cards,
 one worker process a card, segment d on card ``d % cards``; with one card
 (or ``--device cpu``) they run in this process.  It takes no ``--resume``
 or ``--save-state``, and ``--tracking pnp`` only with ``--slam``.
-``--plot`` is not ported.
+``--plot PATH`` draws the trajectory's top-down (x, z) path into a PNG
+(``post/visualizer.py::plot_trajectory``) in every mode.
 """
 
 from __future__ import annotations
@@ -66,6 +69,15 @@ def _limited(batches, limit: int):
             break
 
 
+def _plot(args, poses, log) -> None:
+    """``--plot``: the trajectory's top-down plot."""
+    if args.plot:
+        from tpuslam_torch.post.visualizer import plot_trajectory
+
+        plot_trajectory(poses, args.plot)
+        log.info("Trajectory plot written to %s", args.plot)
+
+
 def _timeshard(args, runner, stream: FrameStream, log) -> int:
     """``--timeshard N``: the frames decoded once into a memmap, then ``run_timesharded`` (VO) or
     ``run_timesharded_system`` (``--slam``)."""
@@ -91,6 +103,7 @@ def _timeshard(args, runner, stream: FrameStream, log) -> int:
              result["S"], result["V"], ", ".join(str(d) for d in devices), dt)
     save_kitti_trajectory(result["poses"], args.output)
     log.info("Trajectory written to %s", args.output)
+    _plot(args, result["poses"], log)
     for lp in result.get("loops", []):
         log.info("Loop closure: frame %d -> keyframe %d (%d inliers)%s", lp["frame_id"],
                  lp["matched_keyframe_id"], lp["num_inliers"], " across segments" if lp.get("cross_segment") else "")
@@ -116,7 +129,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("-c", "--config", required=True,
                         help="config directory holding camera.yml, feature_detector.yml, ...")
     parser.add_argument("-v", "--stream", required=True,
-                        help="image directory of 8-bit grayscale PNGs (optional timestamps.txt)")
+                        help="image directory (PNG or JPEG frames, optional timestamps.txt) or a Motion JPEG "
+                             "AVI")
     parser.add_argument("-o", "--output", default="trajectory.txt",
                         help="output trajectory path (KITTI 12-value rows)")
     parser.add_argument("--camera-index", type=int, default=0)
@@ -145,6 +159,7 @@ def main(argv: list[str] | None = None) -> int:
                         help="cut the video's time axis into N overlapping segments, each tracked with its own "
                              "state, stitched by Sim(3) over the overlaps (with --slam: cross-segment loops and "
                              "a global pose graph); the segments run in turn on the device")
+    parser.add_argument("--plot", default=None, help="write a top-down trajectory plot (PNG)")
     parser.add_argument("--stats", action="store_true", help="print run stats as JSON")
     parser.add_argument("--debug", action="store_true", help="log at the DEBUG level")
     args = parser.parse_args(argv)
@@ -152,6 +167,8 @@ def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO,
                         format="[%(asctime)s] [%(levelname)s] %(message)s")
     log = logging.getLogger("tpuslam_torch")
+    if args.plot and Path(args.plot).suffix.lower() != ".png":
+        parser.error("--plot writes a PNG: give it a .png path")
 
     if args.timeshard:
         if args.resume:
@@ -190,6 +207,7 @@ def main(argv: list[str] | None = None) -> int:
         dt = time.perf_counter() - t0
         save_kitti_trajectory(result["poses"], args.output)
         log.info("Trajectory written to %s", args.output)
+        _plot(args, result["poses"], log)
         if args.stats:
             n = len(result["poses"])
             print(json.dumps({
@@ -252,6 +270,7 @@ def main(argv: list[str] | None = None) -> int:
         else:
             save_state(args.save_state, trajectory=result["poses"], state=result["state"])
         log.info("State checkpoint written to %s", args.save_state)
+    _plot(args, result["poses"], log)
     if args.stats:
         n = len(result["poses"])
         stats = {

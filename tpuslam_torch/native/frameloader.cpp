@@ -5,8 +5,10 @@
 // max(2, cores / 2) threads and its lexical file order; the caller owns a
 // contiguous (n, H, W) uint8 buffer and the pool fills it, one frame a
 // job, with the interpreter lock released (ctypes).  Added:
-// fl_decode_indices (any list of frames in one call), fl_threads and
-// fl_probe (the status of one file's header).
+// fl_decode_indices (any list of frames in one call), fl_threads,
+// fl_probe (the status of one file's header), and fl_open_video /
+// fl_video_chunks: the frames of a Motion JPEG AVI, demuxed here (see the
+// AVI section) and decoded by the JPEG decoder below, on the same pool.
 //
 // PNG decodes over zlib's inflate with this file's own chunk reader,
 // unfilter, Adam7 deinterlace and conversion, since libpng is not on every
@@ -32,11 +34,16 @@
 //
 // Status codes: 0 ok, 1 cannot open the file, 2 out of memory, 3 corrupt or
 // not a frame the loader reads, 4 frame size differs from the first frame,
-// 5 frame index out of range, 6-14 a JPEG variant refused (JpegStatus).
+// 5 frame index out of range, 6-14 a JPEG variant refused (JpegStatus), 15-20
+// a video refused (VideoStatus).
 
+#include <fcntl.h>
+#include <sys/stat.h>
+#include <unistd.h>
 #include <zlib.h>
 
 #include <algorithm>
+#include <cctype>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
@@ -1018,13 +1025,12 @@ void idct_islow(const int16_t* coef, const int16_t* quant, uint8_t* out, size_t 
     }
 }
 
-// Decode (out != nullptr, *h × *w given) or only read the size of a JPEG file.
-int jpeg_gray(const char* path, uint8_t* out, int* h, int* w) {
-    std::vector<uint8_t> file;
-    if (!read_file(path, file)) return E_OPEN;
+// Decode (out != nullptr, *h × *w given) or only read the size of the JPEG in data[0, size): a file's
+// bytes or a video frame's payload, read as libjpeg reads a file (EOI markers past the end).
+int jpeg_gray_mem(const uint8_t* data, size_t size, uint8_t* out, int* h, int* w) {
     Jpeg j;
-    j.d = file.data();
-    j.n = file.size();
+    j.d = data;
+    j.n = size;
     if (int rc = j.header()) return rc;
     if (!out) {
         *h = j.height;
@@ -1060,6 +1066,12 @@ int jpeg_gray(const char* path, uint8_t* out, int* h, int* w) {
     return OK;
 }
 
+int jpeg_gray(const char* path, uint8_t* out, int* h, int* w) {
+    std::vector<uint8_t> file;
+    if (!read_file(path, file)) return E_OPEN;
+    return jpeg_gray_mem(file.data(), file.size(), out, h, w);
+}
+
 bool is_jpeg(const std::string& p) {
     auto dot = p.rfind('.');
     if (dot == std::string::npos) return false;
@@ -1068,14 +1080,184 @@ bool is_jpeg(const std::string& p) {
     return ext == ".jpg" || ext == ".jpeg";
 }
 
+// ---- AVI (Motion JPEG) ---------------------------------------------------------
+//
+// A video file is read as a RIFF tree: "RIFF" "AVI " and any "RIFF" "AVIX" after it
+// (OpenDML, past 1 GB), each chunk a FOURCC, a little-endian 32-bit size and a
+// body padded to an even size; "LIST" bodies begin with a FOURCC form and hold
+// chunks.  "hdrl" holds one "strl" list a stream, each with its "strh" (stream
+// header: type, handler, dwScale, dwRate) and "strf" (for video a
+// BITMAPINFOHEADER: biWidth, biHeight, biCompression) and maybe "vprp" (OpenDML
+// video properties: fields a frame).  The frames are the "##dc" / "##db" chunks,
+// ## the stream's number in two decimal digits, of the "movi" lists (and the
+// "rec " lists inside them), in file order.  The movi lists are walked, not the
+// index: "idx1" covers the first RIFF alone, and JUNK, LIST and index chunks are
+// skipped where they stand.  Frame i is at i · dwScale / dwRate seconds; each
+// payload is one JPEG image, decoded by the decoder above from a pread of its
+// bytes, so frames decode in any order on the pool.  Refused with a status of
+// their own (VideoStatus): a codec other than MJPEG, a container other than AVI,
+// interlaced MJPEG (two fields a frame), a zero-length frame chunk (a dropped
+// frame), a chunk that runs past the end of the file, and no video frames.
+
+enum VideoStatus { V_CODEC = 15, V_CONTAINER = 16, V_INTERLACED = 17, V_EMPTY_CHUNK = 18, V_TRUNCATED = 19,
+                   V_NO_VIDEO = 20 };
+
+// The lists the walk descends into; the chunks of any other list are skipped.
+enum class Form { Riff, Hdrl, Strl, Movi };
+
+inline uint32_t le32(const uint8_t* p) {
+    return uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) | (uint32_t(p[3]) << 24);
+}
+
+inline bool fourcc(const uint8_t* p, const char* s) { return std::memcmp(p, s, 4) == 0; }
+
+// The FOURCC names MJPEG, in any case.
+bool is_mjpg(const uint8_t* p) {
+    const char* want = "MJPG";
+    for (int i = 0; i < 4; ++i)
+        if (std::toupper(p[i]) != want[i]) return false;
+    return true;
+}
+
+bool pread_all(int fd, uint8_t* dst, size_t n, uint64_t at) {
+    while (n) {
+        const ssize_t got = ::pread(fd, dst, n, static_cast<off_t>(at));
+        if (got <= 0) return false;
+        dst += got;
+        n -= static_cast<size_t>(got);
+        at += static_cast<uint64_t>(got);
+    }
+    return true;
+}
+
+struct Avi {
+    int fd = -1;
+    uint64_t size = 0;
+    int strl = -1, video = -1;  // the stream of the current strl list, the first video stream
+    uint32_t scale = 0, rate = 0;
+    int bi_height = 0;
+    std::vector<uint64_t> offsets;  // each frame's payload: file offset and size
+    std::vector<uint32_t> sizes;
+
+    // The chunks of [p, end), in a list of form `form`.
+    int walk(uint64_t p, uint64_t end, Form form) {
+        while (p + 8 <= end) {
+            uint8_t h[12];
+            if (!pread_all(fd, h, 8, p)) return V_TRUNCATED;
+            const uint32_t n = le32(h + 4);
+            const uint64_t body = p + 8, next = body + n;
+            if (next > size) return V_TRUNCATED;
+            if (next > end) return E_FORMAT;  // a chunk that overruns its list
+            if (fourcc(h, "LIST")) {
+                if (n < 4 || !pread_all(fd, h + 8, 4, body)) return E_FORMAT;
+                const uint8_t* kind = h + 8;
+                int rc = OK;
+                if (fourcc(kind, "hdrl")) {
+                    rc = walk(body + 4, next, Form::Hdrl);
+                } else if (fourcc(kind, "strl")) {
+                    ++strl;
+                    rc = walk(body + 4, next, Form::Strl);
+                } else if (fourcc(kind, "movi") || fourcc(kind, "rec ")) {
+                    rc = walk(body + 4, next, Form::Movi);
+                }
+                if (rc) return rc;
+            } else if (form == Form::Strl) {
+                if (int rc = stream_chunk(h, body, n)) return rc;
+            } else if (form == Form::Movi && video >= 0 && h[0] == '0' + video / 10 &&
+                       h[1] == '0' + video % 10 && h[2] == 'd' && (h[3] == 'c' || h[3] == 'b')) {
+                if (n == 0) return V_EMPTY_CHUNK;
+                offsets.push_back(body);
+                sizes.push_back(n);
+            }
+            p = next + (n & 1);
+        }
+        return OK;
+    }
+
+    // strh, strf and vprp of the first video stream; the other streams' are skipped.
+    int stream_chunk(const uint8_t* h, uint64_t body, uint32_t n) {
+        uint8_t b[36];
+        if (fourcc(h, "strh")) {
+            if (n < 36 || !pread_all(fd, b, 36, body)) return E_FORMAT;
+            if (!fourcc(b, "vids") || video >= 0) return OK;
+            if (strl > 99) return E_FORMAT;
+            const uint8_t* handler = b + 4;
+            if (le32(handler) != 0 && !is_mjpg(handler)) return V_CODEC;
+            video = strl;
+            scale = le32(b + 20);
+            rate = le32(b + 24);
+            if (scale == 0 || rate == 0) return E_FORMAT;
+        } else if (strl == video && fourcc(h, "strf")) {
+            if (n < 20 || !pread_all(fd, b, 20, body)) return E_FORMAT;
+            if (!is_mjpg(b + 16)) return V_CODEC;
+            bi_height = std::abs(static_cast<int32_t>(le32(b + 8)));
+        } else if (strl == video && fourcc(h, "vprp")) {
+            if (n >= 36 && pread_all(fd, b, 36, body) && le32(b + 32) == 2) return V_INTERLACED;
+        }
+        return OK;
+    }
+
+    // The RIFF AVI, then each RIFF AVIX after it; bytes after the last are not read.
+    int open(const char* path) {
+        fd = ::open(path, O_RDONLY | O_CLOEXEC);
+        if (fd < 0) return E_OPEN;
+        struct stat st;
+        if (::fstat(fd, &st) != 0) return E_OPEN;
+        size = static_cast<uint64_t>(st.st_size);
+        uint8_t h[12] = {};
+        if (!pread_all(fd, h, std::min<uint64_t>(size, 12), 0)) return E_OPEN;
+        if (fourcc(h + 4, "ftyp") || be32(h) == 0x1A45DFA3u) return V_CONTAINER;  // MP4 / QuickTime, Matroska / WebM
+        if (size < 12) return fourcc(h, "RIFF") ? int(V_TRUNCATED) : int(E_FORMAT);
+        if (!fourcc(h, "RIFF") || !fourcc(h + 8, "AVI ")) return E_FORMAT;
+        uint64_t p = 0;
+        for (int riff = 0; p + 12 <= size; ++riff) {
+            if (!pread_all(fd, h, 12, p) || !fourcc(h, "RIFF") || (riff && !fourcc(h + 8, "AVIX"))) break;
+            const uint32_t n = le32(h + 4);
+            if (n < 4) return E_FORMAT;
+            const uint64_t next = p + 8 + n;
+            if (next > size) return V_TRUNCATED;
+            if (int rc = walk(p + 12, next, Form::Riff)) return rc;
+            p = next + (n & 1);
+        }
+        if (video < 0 || offsets.empty()) return V_NO_VIDEO;
+        return OK;
+    }
+
+    ~Avi() {
+        if (fd >= 0) ::close(fd);
+    }
+};
+
+// A JPEG of this height is one field of a frame of the stream's height (interlaced Motion JPEG).
+bool is_field(int height, int stream_height) {
+    return stream_height > height && (stream_height == 2 * height || stream_height == 2 * height - 1);
+}
+
+// Frame `index` of a video into dst (h × w).
+int decode_video_frame(const Avi& v, int index, uint8_t* dst, int h, int w) {
+    std::vector<uint8_t> payload(v.sizes[index]);
+    if (!pread_all(v.fd, payload.data(), payload.size(), v.offsets[index])) return E_OPEN;
+    int rc = jpeg_gray_mem(payload.data(), payload.size(), dst, &h, &w);
+    if (rc == E_SIZE) {
+        int fh = 0, fw = 0;
+        if (jpeg_gray_mem(payload.data(), payload.size(), nullptr, &fh, &fw) == OK && is_field(fh, v.bi_height))
+            rc = V_INTERLACED;
+    }
+    return rc;
+}
+
 struct Loader {
     std::vector<std::string> files;
+    Avi avi;  // a video: its frames' payloads (files is empty)
     int height = 0;
     int width = 0;
     ThreadPool pool{std::max(2u, std::thread::hardware_concurrency() / 2)};
+
+    int count() const { return static_cast<int>(avi.fd >= 0 ? avi.offsets.size() : files.size()); }
 };
 
 int decode_frame(const Loader* L, int index, uint8_t* dst) {
+    if (L->avi.fd >= 0) return decode_video_frame(L->avi, index, dst, L->height, L->width);
     const std::string& path = L->files[index];
     if (!is_jpeg(path)) return decode_png_gray(path.c_str(), dst, L->height, L->width);
     int h = L->height, w = L->width;
@@ -1120,12 +1302,53 @@ void* fl_open_dir(const char* dir_path, int* n_frames, int* height, int* width) 
     return L;
 }
 
+// Open an MJPEG AVI: its frame chunks listed, the first frame's header read for
+// the size.  Returns a handle and *status 0, or nullptr and *status the reason
+// (1, 2, 3, a JPEG variant of the first frame 6-14, or a VideoStatus 15-20).
+// *scale / *rate are the stream's dwScale / dwRate: frame i is at i · scale / rate s.
+void* fl_open_video(const char* path, int* n_frames, int* height, int* width, unsigned* scale, unsigned* rate,
+                    int* status) {
+    Loader* L = new (std::nothrow) Loader();
+    if (!L) {
+        *status = E_ALLOC;
+        return nullptr;
+    }
+    int rc = L->avi.open(path);
+    if (rc == OK) {
+        std::vector<uint8_t> first(L->avi.sizes[0]);
+        rc = pread_all(L->avi.fd, first.data(), first.size(), L->avi.offsets[0])
+                 ? jpeg_gray_mem(first.data(), first.size(), nullptr, &L->height, &L->width)
+                 : E_OPEN;
+        if (rc == OK && is_field(L->height, L->avi.bi_height)) rc = V_INTERLACED;
+    }
+    *status = rc;
+    if (rc != OK) {
+        delete L;
+        return nullptr;
+    }
+    *n_frames = L->count();
+    *height = L->height;
+    *width = L->width;
+    *scale = L->avi.scale;
+    *rate = L->avi.rate;
+    return L;
+}
+
+// A video's frame chunks: the file offset and the size of each payload (n_frames entries each).
+void fl_video_chunks(void* handle, int64_t* offsets, int64_t* sizes) {
+    const Avi& v = static_cast<Loader*>(handle)->avi;
+    for (size_t i = 0; i < v.offsets.size(); ++i) {
+        offsets[i] = static_cast<int64_t>(v.offsets[i]);
+        sizes[i] = static_cast<int64_t>(v.sizes[i]);
+    }
+}
+
 // Decode the frames indices[0..count) into out (count × H × W uint8,
 // C-contiguous), one pool job a frame.  Returns 0, or the first nonzero
 // status with its position in *failed (when failed is not null).
 int fl_decode_indices(void* handle, const int* indices, int count, uint8_t* out, int* failed) {
     auto* L = static_cast<Loader*>(handle);
-    const int n = static_cast<int>(L->files.size());
+    const int n = L->count();
     if (failed) *failed = -1;
     for (int i = 0; i < count; ++i) {
         if (indices[i] < 0 || indices[i] >= n) {
@@ -1158,7 +1381,7 @@ int fl_decode_indices(void* handle, const int* indices, int count, uint8_t* out,
 // Decode frames [start, start+count) into out (count × H × W uint8).
 int fl_decode_batch(void* handle, int start, int count, uint8_t* out) {
     auto* L = static_cast<Loader*>(handle);
-    if (start < 0 || count < 0 || start + count > static_cast<int>(L->files.size())) return E_RANGE;
+    if (start < 0 || count < 0 || start + count > L->count()) return E_RANGE;
     std::vector<int> indices(count);
     for (int i = 0; i < count; ++i) indices[i] = start + i;
     return fl_decode_indices(handle, indices.data(), count, out, nullptr);

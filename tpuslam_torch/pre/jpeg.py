@@ -558,7 +558,24 @@ def decode_jpeg_gray8(path: str | Path) -> np.ndarray:
     or is corrupt beyond what libjpeg reads through, and ``FrameDecodeError``
     naming the variant for one the decoders refuse.
     """
-    data = Path(path).read_bytes()
+    return decode_jpeg_gray8_bytes(Path(path).read_bytes(), path)
+
+
+def jpeg_size(data: bytes, name) -> tuple[int, int]:
+    """(height, width) from the frame header of the JPEG ``data`` (``name`` in errors), refusals raised."""
+    if data[:2] != b"\xff\xd8":
+        raise JpegError(f"{name}: not a JPEG file")
+    frame = _Frame(name)
+    if frame.markers(_Segments(data, 2)) is None or frame.sof is None:
+        raise JpegError(f"{name}: no frame or no scan")
+    frame.check_colour()
+    return frame.height, frame.width
+
+
+def decode_jpeg_gray8_bytes(data: bytes, name) -> np.ndarray:
+    """``decode_jpeg_gray8`` of the JPEG in ``data`` (a file's bytes, or a video frame's payload, read as
+    libjpeg reads a file); ``name`` names it in errors."""
+    path = name
     if data[:2] != b"\xff\xd8":
         raise JpegError(f"{path}: not a JPEG file")
     frame = _Frame(path)

@@ -9,13 +9,19 @@ a build is only loaded where its key says it belongs.  It links zlib and
 nothing else: PNG inflates through zlib, and JPEG decodes with the source's
 own decoder to libjpeg's gray bytes, the same code on every machine.
 
+``NativeVideoLoader`` reads a Motion JPEG AVI the same way: the source's
+own RIFF walk lists the frame chunks, and each frame's payload is read with
+``pread`` and decoded by the same JPEG decoder on the same pool; no libjpeg
+and no FFmpeg.
+
 There is no fallback: a failed build raises ``LoaderBuildError`` naming the
 compiler's log, and a frame that does not decode raises
 ``FrameDecodeError`` naming the file and the reason — for a JPEG variant the
 decoder refuses, the variant (``JPEG_REFUSED``), at open when it is the
-first frame.  ``pre/stream.py::decode_png_gray8`` and ``pre/jpeg.py::decode_jpeg_gray8``
-are the loader's plain versions, used only where the caller asks for them
-(``FrameStream(use_native=False)``).
+first frame; for a video the loader refuses, why (``VIDEO_REFUSED``), at
+open.  ``pre/stream.py::decode_png_gray8``, ``pre/jpeg.py::decode_jpeg_gray8``
+and ``pre/avi.py`` are the loader's plain versions, used only where the
+caller asks for them (``FrameStream(use_native=False)``).
 """
 
 from __future__ import annotations
@@ -54,12 +60,26 @@ JPEG_REFUSED = {
     13: "a JPEG whose height is given by a DNL marker is not supported",
     14: "a progressive JPEG that leaves luma's AC 1-9 unrefined (libjpeg smooths it) is not supported",
 }
+# The videos the demuxers refuse (``frameloader.cpp::VideoStatus``, ``pre/avi.py``), by status.
+VIDEO_REFUSED = {
+    15: "a video codec other than Motion JPEG (MJPG) is not supported",
+    16: "a video container other than AVI (MP4, QuickTime, Matroska, WebM) is not supported",
+    17: "interlaced Motion JPEG (two fields a frame) is not supported",
+    18: "a zero-length video frame chunk (a dropped frame) is not supported",
+    19: "a truncated AVI (a chunk runs past the end of the file) is not supported",
+    20: "an AVI without a video stream or without frames is not supported",
+}
+VIDEO_NOT_AVI = "not an AVI file, or a corrupt one"
 STATUS.update(JPEG_REFUSED)
+STATUS.update(VIDEO_REFUSED)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
+_UP = ctypes.POINTER(ctypes.c_uint)
 _SIGNATURES = {
     "fl_open_dir": (_P, (ctypes.c_char_p, _IP, _IP, _IP)),
+    "fl_open_video": (_P, (ctypes.c_char_p, _IP, _IP, _IP, _UP, _UP, _IP)),
+    "fl_video_chunks": (None, (_P, _P, _P)),
     "fl_decode_batch": (_I, (_P, _I, _I, _P)),
     "fl_decode_indices": (_I, (_P, _IP, _I, _P, _IP)),
     "fl_threads": (_I, (_P,)),
@@ -129,26 +149,14 @@ def available() -> bool:
     return True
 
 
-class NativeFrameLoader:
-    """Threaded batch decoder over a directory of .png/.jpg/.jpeg frames, in lexical order."""
+class _Loader:
+    """A loader handle: frames by index, decoded on its thread pool."""
 
-    def __init__(self, directory: str | Path):
-        self._handle = None
-        self._lib = library()
-        self.directory = Path(directory)
-        self.files = sorted(p for p in self.directory.iterdir() if p.is_file()
-                            and p.suffix.lower() in FRAME_SUFFIXES) if self.directory.is_dir() else []
-        n, h, w = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        self._handle = self._lib.fl_open_dir(str(directory).encode(), ctypes.byref(n), ctypes.byref(h),
-                                             ctypes.byref(w))
-        if not self._handle:
-            rc = self._lib.fl_probe(str(self.files[0]).encode(), ctypes.byref(h), ctypes.byref(w)) if self.files else 0
-            if rc in JPEG_REFUSED:
-                raise FrameDecodeError(f"{self.files[0]}: {JPEG_REFUSED[rc]}")
-            why = f"the first frame {self.files[0]} cannot be read" if self.files else "no .png/.jpg/.jpeg frames"
-            raise RuntimeError(f"Could not open frame directory: {directory} ({why})")
-        self.n_frames, self.height, self.width = n.value, h.value, w.value
-        self.threads = self._lib.fl_threads(self._handle)
+    _handle = None
+    n_frames = height = width = threads = 0
+
+    def _frame_name(self, index: int) -> str:
+        raise NotImplementedError
 
     def decode_indices(self, indices, out: np.ndarray | None = None) -> np.ndarray:
         """Decode the frames ``indices`` (any order, repeats allowed) in one call → (n, H, W) uint8.
@@ -174,7 +182,7 @@ class NativeFrameLoader:
         rc = self._lib.fl_decode_indices(self._handle, idx.ctypes.data_as(_IP), len(idx),
                                          out.ctypes.data_as(_P), ctypes.byref(failed))
         if rc != 0:
-            frame = self.files[int(idx[failed.value])] if failed.value >= 0 else "a frame"
+            frame = self._frame_name(int(idx[failed.value])) if failed.value >= 0 else "a frame"
             raise FrameDecodeError(f"{frame}: {STATUS.get(rc, f'status {rc}')}")
         return out
 
@@ -189,7 +197,7 @@ class NativeFrameLoader:
             self._lib.fl_close(self._handle)
             self._handle = None
 
-    def __enter__(self) -> "NativeFrameLoader":
+    def __enter__(self):
         return self
 
     def __exit__(self, *exc) -> None:
@@ -197,3 +205,62 @@ class NativeFrameLoader:
 
     def __del__(self):
         self.close()
+
+
+class NativeFrameLoader(_Loader):
+    """Threaded batch decoder over a directory of .png/.jpg/.jpeg frames, in lexical order."""
+
+    def __init__(self, directory: str | Path):
+        self._lib = library()
+        self.directory = Path(directory)
+        self.files = sorted(p for p in self.directory.iterdir() if p.is_file()
+                            and p.suffix.lower() in FRAME_SUFFIXES) if self.directory.is_dir() else []
+        n, h, w = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        self._handle = self._lib.fl_open_dir(str(directory).encode(), ctypes.byref(n), ctypes.byref(h),
+                                             ctypes.byref(w))
+        if not self._handle:
+            rc = self._lib.fl_probe(str(self.files[0]).encode(), ctypes.byref(h), ctypes.byref(w)) if self.files else 0
+            if rc in JPEG_REFUSED:
+                raise FrameDecodeError(f"{self.files[0]}: {JPEG_REFUSED[rc]}")
+            why = f"the first frame {self.files[0]} cannot be read" if self.files else "no .png/.jpg/.jpeg frames"
+            raise RuntimeError(f"Could not open frame directory: {directory} ({why})")
+        self.n_frames, self.height, self.width = n.value, h.value, w.value
+        self.threads = self._lib.fl_threads(self._handle)
+
+    def _frame_name(self, index: int) -> str:
+        return str(self.files[index])
+
+
+class NativeVideoLoader(_Loader):
+    """Threaded batch decoder over the frames of a Motion JPEG AVI, in file order.
+
+    ``scale`` / ``rate`` are the video stream's ``dwScale`` / ``dwRate``:
+    frame i is at ``i * scale / rate`` seconds.  ``offsets`` / ``sizes``
+    locate each frame's JPEG payload in the file.
+    """
+
+    def __init__(self, path: str | Path):
+        self._lib = library()
+        self.path = Path(path)
+        n, h, w, status = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        scale, rate = ctypes.c_uint(), ctypes.c_uint()
+        self._handle = self._lib.fl_open_video(str(path).encode(), ctypes.byref(n), ctypes.byref(h),
+                                               ctypes.byref(w), ctypes.byref(scale), ctypes.byref(rate),
+                                               ctypes.byref(status))
+        if not self._handle:
+            rc = status.value
+            if rc in VIDEO_REFUSED:
+                raise FrameDecodeError(f"{path}: {VIDEO_REFUSED[rc]}")
+            if rc in JPEG_REFUSED:
+                raise FrameDecodeError(f"{self._frame_name(0)}: {JPEG_REFUSED[rc]}")
+            why = VIDEO_NOT_AVI if rc == 3 else STATUS.get(rc, f"status {rc}")
+            raise FrameDecodeError(f"Could not open video file: {path} ({why})")
+        self.n_frames, self.height, self.width = n.value, h.value, w.value
+        self.scale, self.rate = scale.value, rate.value
+        self.threads = self._lib.fl_threads(self._handle)
+        self.offsets = np.empty(self.n_frames, np.int64)
+        self.sizes = np.empty(self.n_frames, np.int64)
+        self._lib.fl_video_chunks(self._handle, self.offsets.ctypes.data_as(_P), self.sizes.ctypes.data_as(_P))
+
+    def _frame_name(self, index: int) -> str:
+        return f"{self.path} frame {index}"

@@ -1,12 +1,12 @@
-"""Host-side frame source: a directory of PNG or JPEG frames.
+"""Host-side frame source: a directory of PNG or JPEG frames, or a Motion JPEG AVI.
 
-Port of ``tpuslam/pre/stream.py`` (directory mode).  Frames decode to
-grayscale uint8 through the port's own threaded C++ loader
-(``pre/native_loader.py``, ``native/frameloader.cpp``) by default, or, with
-``use_native=False``, through the loader's plain versions:
-``decode_png_gray8`` (numpy and the standard library's ``zlib``) and
-``decode_jpeg_gray8`` (``pre/jpeg.py``).  JPEG decodes in both to the bytes
-of the reference's libjpeg gray output, and the variants neither reads
+Port of ``tpuslam/pre/stream.py``.  Frames decode to grayscale uint8
+through the port's own threaded C++ loader (``pre/native_loader.py``,
+``native/frameloader.cpp``) by default, or, with ``use_native=False``,
+through the loader's plain versions: ``decode_png_gray8`` (numpy and the
+standard library's ``zlib``), ``decode_jpeg_gray8`` (``pre/jpeg.py``) and
+the AVI demuxer ``pre/avi.py``.  JPEG decodes in both to the bytes of the
+reference's libjpeg gray output, and the variants neither reads
 (``native_loader.JPEG_REFUSED``) raise ``FrameDecodeError`` naming them.
 Both accept every PNG the reference's loader accepts — bit depths 1 to 16;
 gray, gray + alpha, RGB, RGBA and palette; tRNS; Adam7 interlacing — and
@@ -14,8 +14,19 @@ convert as it does: 16-bit samples keep their high byte, low-depth gray
 expands to 8 bits, a palette expands to RGB, alpha is dropped, and colour
 becomes gray as ``(4899·R + 9617·G + 1868·B + 8192) >> 14``.  Interlaced
 files decode to the image (the reference's loader reads Adam7 pass rows
-as image rows; its OpenCV path decodes them right).  Video input is not
-ported.
+as image rows; its OpenCV path decodes them right).
+
+A path that is a file is read as a Motion JPEG AVI (the reference opens any
+video with ``cv2.VideoCapture``).  Its frames are the JPEG payloads of the
+video stream's chunks in file order, frame i at ``i * dwScale / dwRate``
+seconds, the count ``CAP_PROP_FRAME_COUNT`` gives; each decodes to the
+JPEG's luma, the bytes the same JPEG gives as a file in a directory.  The
+reference's frames are FFmpeg's decode converted to BGR and back to gray,
+within 2 gray levels of these.  Frames are read by index: every Motion JPEG
+frame stands alone, so random access decodes the frame sequential reading
+would.  A video the demuxers refuse (``native_loader.VIDEO_REFUSED``: another
+codec or container, interlaced, a dropped frame, truncated) raises
+``FrameDecodeError`` naming why.
 
 Undistortion is not done here: it is a gather on the device inside the
 pipeline (``tpuslam_torch.common.camera``).  ``device_prefetch`` stages the
@@ -37,8 +48,9 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from tpuslam_torch.pre.avi import open_avi
 from tpuslam_torch.pre.jpeg import decode_jpeg_gray8
-from tpuslam_torch.pre.native_loader import FRAME_SUFFIXES, NativeFrameLoader
+from tpuslam_torch.pre.native_loader import FRAME_SUFFIXES, NativeFrameLoader, NativeVideoLoader
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 MEMMAP_CHUNK = 64  # frames_to_memmap decodes this many frames a call
@@ -231,37 +243,46 @@ def decode_png_gray8(path: str | Path) -> np.ndarray:
 
 
 class FrameStream:
-    """Iterates grayscale uint8 frames from a directory of PNG or JPEG files, in lexical order.
+    """Iterates grayscale uint8 frames from a directory of PNG or JPEG files, in lexical order, or from a
+    Motion JPEG AVI, in file order.
 
     ``use_native`` (the default) decodes through the threaded C++ loader,
     built here at first use; a machine where it cannot be built raises
     (``LoaderBuildError``), never decoding in Python unasked.
-    ``use_native=False`` decodes with ``decode_png_gray8`` and
-    ``decode_jpeg_gray8``, the same bytes, slowly.
+    ``use_native=False`` decodes with ``decode_png_gray8``,
+    ``decode_jpeg_gray8`` and ``pre/avi.py``, the same bytes, slowly.
     """
 
     def __init__(self, stream_path: str | Path, frame_skip: int = 0, use_native: bool = True):
         self.path = Path(stream_path)
         self.frame_skip = frame_skip
-        if not self.path.is_dir():
-            raise NotImplementedError(
-                f"{self.path}: only image directories are supported by the port; "
-                "video input is not ported yet"
+        self._native = self._video = None
+        self._files: list[Path] = []
+        if self.path.is_dir():
+            self.is_directory = True
+            self._files = sorted(
+                p for p in self.path.iterdir() if p.is_file() and p.suffix.lower() in FRAME_SUFFIXES
             )
-        self._files = sorted(
-            p for p in self.path.iterdir() if p.is_file() and p.suffix.lower() in FRAME_SUFFIXES
-        )
-        self.total_frames = len(self._files)
-        ts_file = self.path / "timestamps.txt"
-        if ts_file.is_file():
-            self._timestamps = parse_timestamps(ts_file)
-            if len(self._timestamps) != self.total_frames:
-                raise RuntimeError("Number of timestamps does not match number of frames.")
+            self.total_frames = len(self._files)
+            ts_file = self.path / "timestamps.txt"
+            if ts_file.is_file():
+                self._timestamps = parse_timestamps(ts_file)
+                if len(self._timestamps) != self.total_frames:
+                    raise RuntimeError("Number of timestamps does not match number of frames.")
+            else:
+                self._timestamps = [float(i) for i in range(self.total_frames)]
+            if use_native and self.total_frames:
+                self._native = NativeFrameLoader(self.path)
+        elif self.path.is_file():
+            self.is_directory = False
+            if use_native:
+                video = self._native = NativeVideoLoader(self.path)
+            else:
+                video = self._video = open_avi(self.path)
+            self.total_frames = video.n_frames
+            self._timestamps = [i * video.scale / video.rate for i in range(self.total_frames)]
         else:
-            self._timestamps = [float(i) for i in range(self.total_frames)]
-        self._native = None
-        if use_native and self.total_frames:
-            self._native = NativeFrameLoader(self.path)
+            raise RuntimeError(f"Unsupported stream type: {self.path}")
 
     def read_frames(self, indices: list[int], out: np.ndarray | None = None) -> np.ndarray:
         """Decode the frames ``indices`` → (n, H, W) uint8, into ``out`` when it is given.
@@ -271,8 +292,11 @@ class FrameStream:
         if self._native is not None:
             return self._native.decode_indices(indices, out)
         for i, idx in enumerate(indices):
-            path = self._files[idx]
-            frame = decode_png_gray8(path) if path.suffix.lower() == ".png" else decode_jpeg_gray8(path)
+            if self._video is not None:
+                frame = self._video.decode(idx)
+            else:
+                path = self._files[idx]
+                frame = decode_png_gray8(path) if path.suffix.lower() == ".png" else decode_jpeg_gray8(path)
             if out is None:
                 out = np.empty((len(indices), *frame.shape), np.uint8)
             out[i] = frame
