@@ -192,6 +192,28 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    process outlives its pool; the time of an answer the size of the
    time-sharded run's DBs against an empty one, split into the worker's
    packing into shared memory and the parent's reading;
+   step-workers — the per-chunk step over worker processes
+   (``shard_batched_pipeline`` with a ``WorkerPool`` on ``[cuda:0, cuda:0]``,
+   and every card where there are more): ``[multiseq-vo]``'s 4 VO sequences,
+   2 a worker, 6 chunks; every result and the final states fetched from the
+   workers bit-equal to the same step in this process (``InProcess``);
+   launches summed over the workers exactly the in-process count (kernels
+   1-4 12 each, kernel 5 none); the workers' walls overlapping on every
+   chunk; frames/s in turns (in process, card frames, host frames, card
+   frames, in process), the ms a call spends sending the
+   frames (through the entry's buffer on the card, CUDA IPC, or its reused
+   block of shared memory) and returning the results, a fresh block's ms,
+   each worker's peak memory;
+   multihost — a mesh across a process group: two ranks spawned with
+   ``MASTER_ADDR`` 127.0.0.1 and a free port (gloo over the loopback), each
+   owning ``cuda:0``: ``initialize_multihost()`` True and a global mesh of 2
+   entries; ``shard_sequence_program`` over ``[workers]``' two PnP SLAM
+   sequences, ``run_timesharded_system`` (VO, the 192 frames from a memmap, 4
+   shards) and the per-chunk step with ``hosts.fill_sequences`` bit-equal on
+   every rank to the single-process runs of ``[workers]`` and
+   ``[step-workers]``; launches summed over the ranks exact; rank 1 made to
+   raise named on both ranks within 60 s; the group destroyed, no process
+   left; each rank's wall and its exchanges' bytes and seconds;
 17. cli-timeshard — ``python -m tpuslam_torch.cli -c configs -v
    tests/data/images --timeshard 2 --slam --batch-size 4 --stats``
    (through ``frames_to_memmap``; on one card in this process): exit 0, 10
@@ -242,7 +264,9 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    points of one detector run on fixture frames 0 and 1 on the card drawn
    equal to those of the CPU run; every PNG written, [video]'s ``--plot``
    files among them, decodes through the port's loader to its drawn size;
-23. soak — ``tpuslam_torch/tools/soak.py``'s run: 1,536 frames (the ring of
+23. soak — in a process of its own, started before ``[loader]`` and
+   collected after ``[profile]`` (the script's time limit; its rates are
+   taken beside those phases): ``tpuslam_torch/tools/soak.py``'s run: 1,536 frames (the ring of
    512 keyframes overflows three times), VO, the tree vocabulary, the
    redundancy policy: kernels 1-3 96 launches each, kernel 4 at least that,
    kernel 5 none; its pass rule (finite, ``pose_ok`` > 95%, >= 1 revisit
@@ -2554,7 +2578,7 @@ def phase_workers(camera, config_dir: Path, frames_np: np.ndarray, ts_frames: np
     want_sys, sys_s, sys_counts = timed(run_timesharded_system, vo, ts_frames, TS_SHARDS, devices=["cuda:0"])
     want_vo1, vo1_s, _ = timed(run_timesharded, pipe, ts_frames, TS_SHARDS, devices=["cuda:0"])
     meshes = [["cuda:0", "cuda:0"]] + ([make_device_mesh()] if torch.cuda.device_count() > 1 else [])
-    recs = []
+    recs, refs = [], None
     with contextlib.ExitStack() as stack, tempfile.TemporaryDirectory(prefix="chip_smoke_workers_") as tmp:
         # the two sequences in turn in one worker process: (a)'s like-for-like baseline
         solo = stack.enter_context(WorkerPool(["cuda:0"]))
@@ -2579,6 +2603,9 @@ def phase_workers(camera, config_dir: Path, frames_np: np.ndarray, ts_frames: np
                 solo_runs = [timed(solo_step, chunks, valid, seeds)]
                 (carries, outs), run_s, counts = timed(step, chunks, valid, seeds)
                 walls = dict(pool.last_walls)
+                if refs is None:  # [multihost] holds its ranks to the run over [cuda:0, cuda:0]
+                    refs = {"seq": (carries, outs), "seq_counts": counts, "sys_counts": sys_counts,
+                            "sys": {k: v for k, v in want_sys.items() if k != "seconds"}}
                 solo_runs.append(timed(solo_step, chunks, valid, seeds))
                 _, in_turn_after_s, _ = timed(in_turn)
                 check_launches(label, counts, {**{k: None for k in uses}, "fused_frontend_nms_batch": 0})
@@ -2695,7 +2722,301 @@ def phase_workers(camera, config_dir: Path, frames_np: np.ndarray, ts_frames: np
     alive = [c.pid for c in multiprocessing.active_children() if c.pid in solo.pids]
     if alive:
         raise AssertionError(f"[{label}] the one-worker pool's process {alive} outlived it")
-    return {"meshes": recs, "launches": recs[0]["launches"]}
+    return {"meshes": recs, "launches": recs[0]["launches"], "multihost_refs": refs}
+
+
+def phase_step_workers(camera, config_dir: Path, card: str, uses) -> tuple[dict, dict]:
+    """The per-chunk step over worker processes (``shard_batched_pipeline`` with a ``WorkerPool``).
+
+    ``[multiseq-vo]``'s data: 4 VO sequences of 96 frames at batch 16 (offsets 5, seeds 0-3), two a mesh
+    entry on the mesh ``[cuda:0, cuda:0]`` (and every card where there are more), 6 chunks.  Against the
+    same step in this process (``InProcess``, the entries in turn): every result and the final states
+    fetched from the workers bit-equal, launches summed exactly to the in-process count, the workers'
+    walls overlapping on every chunk; frames/s of both in turns (in process, the card's frames through
+    CUDA IPC, the host's frames through the reused blocks, CUDA IPC, in process), the ms a call spends
+    sending the frames and returning the results, a fresh block of shared memory for one entry's frames
+    (the whole-run programs' way) beside them, and each worker's peak memory.  Returns the record and,
+    for ``[multihost]``, the in-process run on ``[cuda:0, cuda:0]``."""
+    import multiprocessing
+
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.dist import workers
+    from tpuslam_torch.dist.mesh import make_device_mesh, shard_batched_pipeline
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.model.slam import SlamPipeline
+
+    label = "step-workers"
+    n_seq, offset, seeds = 4, 5, [0, 1, 2, 3]
+    pipeline = SlamPipeline(camera, SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH), device="cuda")
+    tiled = load_frames(N_FRAMES + offset * (n_seq - 1))
+    n_chunks = N_FRAMES // BATCH
+    host = np.stack([tiled[offset * s: offset * s + N_FRAMES] for s in range(n_seq)])
+    host = host.reshape(n_seq, n_chunks, BATCH, *tiled.shape[1:])
+    card_frames = torch.from_numpy(host).cuda()
+    valid = torch.ones((n_seq, BATCH), dtype=torch.bool)
+
+    def drive(step, frames) -> dict:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        states, out, walls, answers = [pipeline.initial_state() for _ in seeds], [], [], []
+        t0 = time.perf_counter()
+        for c in range(n_chunks):
+            results, states = step(frames[:, c], valid, states, seeds)
+            out.append(results)
+            walls.append(dict(step.pool.last_walls))
+            answers.append(dict(getattr(step.pool, "last_answers", {})))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        return {"results": out, "states": [step.fetch(h) for h in states], "seconds": secs, "launches": counts,
+                "walls": walls, "answers": answers}
+
+    def per_call_ms(run: dict, *keys) -> float:
+        """The ms a call spent on ``keys`` of the answers, the slowest entry of each call, averaged."""
+        return 1e3 * float(np.mean([max(sum(a[k] for k in keys) for a in call.values()) for call in run["answers"]]))
+
+    meshes = [["cuda:0", "cuda:0"]] + ([make_device_mesh()] if torch.cuda.device_count() > 1 else [])
+    recs, refs = [], None
+    for devices in meshes:
+        names = [str(d) for d in devices]
+        in_process = shard_batched_pipeline(pipeline, devices, pool=workers.InProcess(devices))
+        t0 = time.perf_counter()
+        pool = workers.WorkerPool(devices)
+        start_s = time.perf_counter() - t0
+        try:
+            step = shard_batched_pipeline(pipeline, devices, pool=pool)
+            t0 = time.perf_counter()
+            drive(step, card_frames)  # the workers' replicas and first launches
+            warm_s = time.perf_counter() - t0
+            runs = {"in_process": [drive(in_process, card_frames)]}
+            runs["ipc"] = [drive(step, card_frames)]
+            runs["block"] = [drive(step, host)]
+            runs["ipc"].append(drive(step, card_frames))
+            runs["in_process"].append(drive(in_process, card_frames))
+            want = runs["in_process"][0]
+            n_entries = min(n_seq, len(devices))
+            check_launches(label, want["launches"], {**{k: n_entries * n_chunks for k in uses},
+                                                     "fused_frontend_nms_batch": 0})
+            for how in ("in_process", "ipc", "block"):
+                for i, run in enumerate(runs[how]):
+                    what = f"{names} {how} pass {i}"
+                    same_bits(label, run["results"], want["results"], f"{what} results")
+                    same_bits(label, run["states"], want["states"], f"{what} final states")
+                    if run["launches"] != want["launches"]:
+                        raise AssertionError(f"[{label}] {what}: launches {run['launches']}, in process "
+                                             f"{want['launches']}")
+                    if how != "in_process" and not all(
+                            max(t0 for t0, _ in w.values()) < min(t1 for _, t1 in w.values()) for w in run["walls"]):
+                        raise AssertionError(f"[{label}] {what}: the workers' walls do not overlap on every chunk")
+            peaks = pool.run([(i, torch.cuda.max_memory_allocated, ()) for i in range(len(devices))])
+            # the whole-run programs' way: a fresh block of shared memory for one entry's frames each call
+            rows = host[[0, 2], 0]
+            fresh = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                with workers._frames_file(rows):
+                    pass
+                fresh.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            pool.close()
+        left = [c.pid for c in multiprocessing.active_children() if c.pid in pool.pids]
+        if left:
+            raise AssertionError(f"[{label}] worker processes {left} outlived the pool")
+        total = n_seq * N_FRAMES
+        fps = {how: [total / r["seconds"] for r in rs] for how, rs in runs.items()}
+        ms = {how: {"send_ms": [per_call_ms(r, "send_s") for r in runs[how]],
+                    "open_ms": [per_call_ms(r, "open_s") for r in runs[how]],
+                    "return_ms": [per_call_ms(r, "pack_s", "unpack_s") for r in runs[how]]}
+              for how in ("ipc", "block")}
+        rec = {"devices": names, "sequences": n_seq, "frames": N_FRAMES, "chunks": n_chunks, "fps": fps,
+               "speedup_ipc": [f / fps["in_process"][i] for i, f in enumerate(fps["ipc"])],
+               "exchange": ms, "fresh_block_ms": fresh, "pool_start_s": start_s, "warm_up_s": warm_s,
+               "worker_peak_memory_bytes": peaks, "launches": runs["ipc"][0]["launches"],
+               "in_process_launches": want["launches"]}
+        log(f"[{label}] {names}: {n_seq} VO sequences of {N_FRAMES} frames, 2 a worker, {n_chunks} chunks: "
+            f"frames/s in process {[round(f, 2) for f in fps['in_process']]}, over the workers with the card's "
+            f"frames through CUDA IPC {[round(f, 2) for f in fps['ipc']]} ({[round(x, 3) for x in rec['speedup_ipc']]}"
+            f"x), with host frames through the reused blocks {[round(f, 2) for f in fps['block']]}; every result "
+            f"and the final states bit-equal to the step in process, launches {want['launches']} summed == in "
+            f"process, walls overlapping on every chunk; a call's frames: IPC {ms['ipc']['send_ms']} ms to send, "
+            f"{ms['ipc']['open_ms']} ms to open; reused block {ms['block']['send_ms']} ms to copy, "
+            f"{ms['block']['open_ms']} ms to open; a fresh block for one entry "
+            f"{[round(x, 3) for x in fresh]} ms; results back {ms['ipc']['return_ms']} ms; worker peak memory "
+            f"{[round(p / 2**30, 3) for p in peaks]} GiB; pool start {start_s:.2f} s, warm-up {warm_s:.2f} s; "
+            f"on {card}")
+        recs.append(rec)
+        if refs is None:
+            refs = {"results": want["results"], "states": want["states"], "launches": want["launches"]}
+    return {"meshes": recs, "launches": recs[0]["launches"]}, refs
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _multihost_rank(rank: int, port: int, ts_path: str, ts_shape: tuple, out_dir: str) -> None:
+    """One of ``[multihost]``'s two ranks, each owning ``cuda:0``: ``initialize_multihost()`` from the
+    environment, the global mesh, then ``shard_sequence_program``, ``run_timesharded_system`` and the
+    per-chunk step over it, and a run in which rank 1 raises; what it saw goes to ``out_dir/rank<r>.pkl``."""
+    import os
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank),
+                      GLOO_SOCKET_IFNAME="lo")  # both ranks on this host: gloo over the loopback
+    import torch.distributed as dist
+
+    from tpuslam_torch.common.camera import Camera
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.dist import hosts
+    from tpuslam_torch.dist.mesh import (initialize_multihost, make_device_mesh, shard_batched_pipeline,
+                                         shard_sequence_program)
+    from tpuslam_torch.dist.timeshard import run_timesharded, run_timesharded_system
+    from tpuslam_torch.dist.workers import _dumps
+    from tpuslam_torch.kernels import launch_counts, reset_launch_counts
+    from tpuslam_torch.model.slam import SlamPipeline
+    from tpuslam_torch.model.system import SlamSystem
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // 2))
+    t_start = time.perf_counter()
+    rec: dict = {"rank": rank, "joined": initialize_multihost()}
+    devices = make_device_mesh()
+    rec["mesh"] = [str(d) for d in devices]
+    config_dir = REPO / "configs"
+    camera = Camera.from_yaml(config_dir / "camera.yml")
+    config = SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH)
+    vocab = config_dir / "vocabulary_tree.npz"
+    pnp = SlamSystem(camera, config, vocabulary=vocab, tracking="pnp", device="cuda")
+    vo = SlamSystem(camera, config, vocabulary=vocab, tracking="vo", device="cuda")
+    pipe = SlamPipeline(camera, config, device="cuda")
+    frames_np = load_frames(N_FRAMES)
+    n = len(frames_np)
+    chunks = np.broadcast_to(frames_np.reshape(1, n // BATCH, BATCH, *frames_np.shape[1:]),
+                             (2, n // BATCH, BATCH, *frames_np.shape[1:])).copy()
+    ts = np.memmap(ts_path, dtype=np.uint8, mode="r", shape=ts_shape)
+    tiled = load_frames(N_FRAMES + 15)
+    seqs = torch.from_numpy(np.stack([tiled[5 * s: 5 * s + N_FRAMES] for s in range(4)])).cuda()
+    seqs = seqs.reshape(4, n // BATCH, BATCH, *tiled.shape[1:])
+    rec["setup_s"] = time.perf_counter() - t_start
+
+    def run(name: str, fn, *args, **kw):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        hosts.EXCHANGES.clear()
+        t0 = time.perf_counter()
+        value = fn(*args, **kw)
+        torch.cuda.synchronize()
+        rec[name] = {"seconds": time.perf_counter() - t0, "launches": launch_counts(), "value": value,
+                     "exchanges": list(hosts.EXCHANGES)}
+
+    run("sequence_program", shard_sequence_program(pnp, devices), chunks, np.ones(chunks.shape[:3], bool), [0, 1])
+    run("timeshard_slam", lambda: {k: v for k, v in run_timesharded_system(vo, ts, TS_SHARDS, devices=devices).items()
+                                   if k != "seconds"})
+
+    def drive_step():
+        with shard_batched_pipeline(pipe, devices) as step:
+            states, out = [pipe.initial_state() for _ in range(4)], []
+            for c in range(n // BATCH):
+                results, states = step(seqs[:, c], torch.ones((4, BATCH), dtype=torch.bool), states, [0, 1, 2, 3])
+                out.append(hosts.fill_sequences(results))
+            final = hosts.fill_sequences([None if h is None else step.fetch(h) for h in states])
+        return {"results": out, "states": final}
+
+    run("step", drive_step)
+
+    def refuse_on_rank_1(d: int) -> dict:
+        if rank == 1:
+            raise RuntimeError(f"shard {d} refused on rank 1")
+        return {}
+
+    t0 = time.perf_counter()
+    try:
+        run_timesharded(pipe, ts, TS_SHARDS, devices=devices, shard_hooks=refuse_on_rank_1)
+        rec["raised"] = None
+    except hosts.RankError as exc:
+        rec["raised"] = {"message": str(exc)[:4000], "seconds": time.perf_counter() - t0}
+    dist.destroy_process_group()
+    rec["destroyed"] = not dist.is_initialized()
+    rec["wall_s"] = time.perf_counter() - t_start
+    Path(out_dir, f"rank{rank}.pkl").write_bytes(_dumps(rec))
+
+
+def phase_multihost(ts_frames: np.ndarray, card: str, uses, workers_refs: dict, step_refs: dict) -> dict:
+    """A mesh that spans a process group: two ranks (``torch.multiprocessing`` ``spawn``, ``MASTER_ADDR``
+    127.0.0.1 and a free port, gloo for every exchange), each owning ``cuda:0``.  On every rank:
+    ``initialize_multihost()`` True and a global mesh of 2 entries; ``shard_sequence_program`` over
+    ``[workers]``' two PnP SLAM sequences bit-equal to that phase's run over ``[cuda:0, cuda:0]``;
+    ``run_timesharded_system`` (VO, the 192 frames from a memmap, 4 shards, 2 a rank) bit-equal to the
+    in-process run on every field but ``seconds``; the per-chunk step with ``hosts.fill_sequences`` bit-equal
+    to ``[step-workers]``' in-process step; launches summed over the ranks exact; rank 1 made to raise is
+    named on rank 0 within 60 s; the group destroyed and no process left.  Each rank's wall, and the
+    bytes and seconds of the exchanges."""
+    import multiprocessing
+    import pickle
+
+    label = "multihost"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multihost_") as tmp:
+        ts_path = Path(tmp) / "frames.u8"
+        mm = np.memmap(ts_path, dtype=np.uint8, mode="w+", shape=ts_frames.shape)
+        mm[:] = ts_frames
+        mm.flush()
+        del mm
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _multihost_rank, args=(_free_port(), str(ts_path), tuple(ts_frames.shape), tmp), nprocs=2,
+            join=False, start_method="spawn")
+        pids = ctx.pids()
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > 600:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"[{label}] the ranks did not end within 600 s")
+        wall = time.perf_counter() - t0
+        recs = [pickle.loads((Path(tmp) / f"rank{r}.pkl").read_bytes()) for r in range(2)]
+    alive = [c.pid for c in multiprocessing.active_children() if c.pid in pids]
+    if alive:
+        raise AssertionError(f"[{label}] rank processes {alive} outlived the run")
+    wants = {"sequence_program": (workers_refs["seq"], workers_refs["seq_counts"]),
+             "timeshard_slam": (workers_refs["sys"], workers_refs["sys_counts"]),
+             "step": ({"results": step_refs["results"], "states": step_refs["states"]}, step_refs["launches"])}
+    summed = {}
+    for r, rec in enumerate(recs):
+        if rec["joined"] is not True or rec["mesh"] != ["rank 0 cuda:0", "rank 1 cuda:0"]:
+            raise AssertionError(f"[{label}] rank {r}: joined {rec['joined']}, mesh {rec['mesh']}")
+        for name, (want, _) in wants.items():
+            same_bits(label, rec[name]["value"], want, f"rank {r} {name}")
+        raised = rec["raised"]
+        if raised is None or not raised["message"].startswith(f"rank 1 failed (seen on rank {r})") or \
+                "shard 1 refused on rank 1" not in raised["message"] or raised["seconds"] >= 60:
+            raise AssertionError(f"[{label}] rank {r}: the raising rank was not named in time: {raised}")
+        if not rec["destroyed"]:
+            raise AssertionError(f"[{label}] rank {r}: the group was not destroyed")
+    for name, (_, want_counts) in wants.items():
+        summed[name] = {k: sum(rec[name]["launches"][k] for rec in recs) for k in want_counts}
+        if summed[name] != want_counts:
+            raise AssertionError(f"[{label}] {name}: launches summed over the ranks {summed[name]}, in one process "
+                                 f"{want_counts}")
+    check_launches(label, summed["step"], {**{k: None for k in uses}, "fused_frontend_nms_batch": 0})
+    total = {k: sum(s[k] for s in summed.values()) for k in summed["step"]}
+    out = {"wall_s": wall, "launches": total, "launches_by_program": summed,
+           "ranks": [{"wall_s": rec["wall_s"], "setup_s": rec["setup_s"], "raised_s": rec["raised"]["seconds"],
+                      **{name: {"seconds": rec[name]["seconds"],
+                                "exchange_bytes": sum(x["bytes"] for x in rec[name]["exchanges"]),
+                                "exchange_s": sum(x["seconds"] for x in rec[name]["exchanges"]),
+                                "largest_exchange": max(rec[name]["exchanges"], key=lambda x: x["bytes"],
+                                                        default=None)}
+                         for name in wants}} for rec in recs]}
+    for r, rank in enumerate(out["ranks"]):
+        log(f"[{label}] rank {r}: wall {rank['wall_s']:.2f} s (set-up {rank['setup_s']:.2f} s); " + "; ".join(
+            f"{name} {rank[name]['seconds']:.2f} s, exchanges {rank[name]['exchange_bytes'] / 2**20:.1f} MiB in "
+            f"{rank[name]['exchange_s']:.3f} s (largest {rank[name]['largest_exchange']})" for name in wants) +
+            f"; rank 1's error reached it after {rank['raised_s']:.2f} s; on {card}")
+    log(f"[{label}] 2 ranks on cuda:0 over gloo: shard_sequence_program, run_timesharded_system and the "
+        f"per-chunk step bit-equal on every rank to the single-process runs, launches summed exact "
+        f"({summed}); the raising rank named on both; {wall:.1f} s with the ranks' start; on {card}")
+    return out
 
 
 def phase_cli_timeshard(card: str) -> dict:
@@ -3281,6 +3602,49 @@ def phase_soak(card: str) -> dict:
     return report
 
 
+def _soak_process(out_path: str, card: str) -> None:
+    """``phase_soak`` in a process of its own: its report and printed lines, or its traceback, to
+    ``out_path`` as JSON."""
+    import traceback
+
+    torch.set_num_threads(2)
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            result = ["ok", phase_soak(card)]
+    except Exception:
+        result = ["error", traceback.format_exc()]
+    Path(out_path).write_text(json.dumps(result + [printed.getvalue()]))
+
+
+def start_soak(card: str, tmp: str):
+    """``[soak]`` started in its own process (spawned, its own launch counters), beside the phases that
+    follow; ``finish_soak`` collects it."""
+    import multiprocessing
+
+    out_path = str(Path(tmp) / "soak.json")
+    proc = multiprocessing.get_context("spawn").Process(target=_soak_process, args=(out_path, card))
+    proc.start()
+    return proc, out_path, time.perf_counter()
+
+
+def finish_soak(proc, out_path: str, t0: float) -> dict:
+    """Wait for ``start_soak``'s process (at most 900 s), print its lines, and fail where it failed."""
+    proc.join(900)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        raise AssertionError("[soak] did not end within 900 s")
+    if not Path(out_path).exists():
+        raise AssertionError(f"[soak] its process ended with exit code {proc.exitcode} and no report")
+    status, value, printed = json.loads(Path(out_path).read_text())
+    sys.stdout.write(printed)
+    if status != "ok":
+        raise AssertionError(f"[soak] failed in its process:\n{value}")
+    log(f"[soak] phase took {time.perf_counter() - t0:.1f} s, beside the phases since [loader]")
+    return value
+
+
 def phase_profile(camera, config_dir: Path, frames_np: np.ndarray, card: str) -> dict:
     """``tools/profile_stages.py`` on the main path and the pyramid, and ``tools/profile_slam.py`` (VO,
     PnP and localization against the PnP run's map, the tree vocabulary) over the 96 frames."""
@@ -3423,9 +3787,18 @@ def main() -> int:
                for tracking in ("vo", "pnp")}
     multiseq = timed_phase("multiseq", phase_multiseq, camera, config_dir, frames_np, card, main_uses)
     workers = timed_phase("workers", phase_workers, camera, config_dir, frames_np, ts_frames, card, main_uses)
+    t_new = time.perf_counter()
+    step_workers, step_refs = timed_phase("step-workers", phase_step_workers, camera, config_dir, card, main_uses)
+    multihost = timed_phase("multihost", phase_multihost, ts_frames, card, main_uses, workers.pop("multihost_refs"),
+                            step_refs)
+    del step_refs
+    log(f"[new phases] step-workers, multihost took {time.perf_counter() - t_new:.1f} s")
     cli_ts = timed_phase("cli-timeshard", phase_cli_timeshard, card)
 
-    # The frame loader and the CLI over a directory, the soak past the keyframe ring, the stage profiles.
+    # The frame loader and the CLI over a directory, the soak past the keyframe ring (in a process of its
+    # own, beside the phases after it: the script's time limit), the stage profiles.
+    soak_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_soak_")
+    soak_run = start_soak(card, soak_tmp.name)
     t_new = time.perf_counter()
     loader = timed_phase("loader", phase_loader, camera, config_dir, frames_np, card)
     t_jpeg = time.perf_counter()
@@ -3438,8 +3811,9 @@ def main() -> int:
     video = timed_phase("video", phase_video, config_dir, twin_frames, card)
     plot = timed_phase("plot", phase_plot, pipeline, frames_np, video.pop("plots"), card)
     log(f"[new phases] video, plot took {time.perf_counter() - t_video:.1f} s")
-    soak = timed_phase("soak", phase_soak, card)
     profile = timed_phase("profile", phase_profile, camera, config_dir, frames_np, card)
+    soak = finish_soak(*soak_run)
+    soak_tmp.cleanup()
     log(f"[new phases] loader, jpeg, vocab-tools, video, plot, soak, profile took {time.perf_counter() - t_new:.1f} s")
 
     for r in records:
@@ -3465,6 +3839,8 @@ def main() -> int:
                                  "multiseq": multiseq["launches"][r["name"]],
                                  "multiseq_vo": multiseq_vo["launches"][r["name"]],
                                  "workers_multiseq": workers["launches"][r["name"]],
+                                 "step_workers": step_workers["launches"][r["name"]],
+                                 "multihost": multihost["launches"][r["name"]],
                                  "cli_directory": loader["cli_launches"][r["name"]],
                                  "cli_jpeg": jpeg["cli_launches"][r["name"]],
                                  "video": video["cli_launches"][r["name"]],
@@ -3507,7 +3883,7 @@ def main() -> int:
                     "slam_lc_pnp": slam_lc["pnp"], "pose_graph_pcg": pose_graph, "stream": stream["vo"],
                     "stream_pnp": stream["pnp"], "localize": localize, "timeshard": timeshard,
                     "timeshard_slam": ts_slam["vo"], "timeshard_slam_pnp": ts_slam["pnp"], "multiseq": multiseq, "multiseq_vo": multiseq_vo,
-                    "workers": workers, "cli_timeshard": cli_ts, "loader": loader, "jpeg": jpeg, "video": video, "plot": plot,
+                    "workers": workers, "step_workers": step_workers, "multihost": multihost, "cli_timeshard": cli_ts, "loader": loader, "jpeg": jpeg, "video": video, "plot": plot,
                     "vocab_tools": vocab_tools, "soak": soak, "profile": profile}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

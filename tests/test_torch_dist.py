@@ -118,8 +118,9 @@ def test_shard_batched_pipeline_equals_process_chunk():
     pipe = tiny_pipeline()
     frames = np.stack([tiny_frames(TINY_B, start=5 * s) for s in range(3)])
     valid = np.ones((3, TINY_B), bool)
-    step = mesh.shard_batched_pipeline(pipe, ["cpu", "cpu"])
-    results, states = step(frames, valid, [pipe.initial_state()] * 3, [0, 1, 2])
+    with mesh.shard_batched_pipeline(pipe, ["cpu", "cpu"]) as step:
+        results, states = step(frames, valid, [pipe.initial_state()] * 3, [0, 1, 2])
+        states = [step.fetch(h) for h in states]  # the states stay in the workers until fetched
     for s in range(3):
         want, want_state = pipe.process_chunk(torch.from_numpy(frames[s]), torch.ones(TINY_B, dtype=torch.bool),
                                               pipe.initial_state(), seed=s)

@@ -13,9 +13,14 @@ Layout (core segment length S, overlap V, both multiples of the batch):
 
 Shard d runs on entry ``d % len(devices)`` of the mesh (``dist/mesh.py``;
 default: the first min(D, visible cards) cards for a pipeline on the card,
-``default_mesh``).  The entries of a mesh of more than one run at the same
-time, one worker process each (``dist/workers.py``), and a mesh of one
-entry runs in this process.  In VO mode (``run_timesharded``) an entry's
+``default_mesh``, every rank's cards in a process group).  The entries of a
+mesh of more than one run at the same time, one worker process each
+(``dist/workers.py``), and a mesh of one entry runs in this process; on a
+mesh that spans a process group each rank runs the shards of its own
+entries, and the serial part after the shards (the stitch, the
+cross-segment pass, the global pose graph) runs once, on the rank that owns
+entry 0, and is sent to every rank, so that every rank returns the same
+result (``dist/hosts.py``).  In VO mode (``run_timesharded``) an entry's
 shards run as one batched sequence (``SlamPipeline.process_chunks`` a
 chunk, the reference's ``jax.vmap``), each batched chunk staged just before
 it runs; full SLAM (``run_timesharded_system``) runs an entry's shards in
@@ -50,8 +55,9 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from tpuslam_torch.dist.mesh import _PIPELINE_HOOKS, _entries, make_device_mesh, replica_on
-from tpuslam_torch.dist.workers import crosses_processes, executor, require_picklable
+from tpuslam_torch.dist import hosts
+from tpuslam_torch.dist.mesh import _PIPELINE_HOOKS, _device, _entries, make_device_mesh, replica_on, run_groups
+from tpuslam_torch.dist.workers import require_picklable
 from tpuslam_torch.model.slam import _stack_results
 
 _CROSS_STREAM = 0x27D4EB2F165667C5  # xor-ed into the seed of cross-segment verification's draws
@@ -146,14 +152,26 @@ def _shard_hooks(obj, hooks: dict | None):
             setattr(target, name, fn)
 
 
-def default_mesh(obj, n_shards: int) -> list[torch.device]:
+def default_mesh(obj, n_shards: int) -> list:
     """The mesh of a time-sharded run of ``obj`` (a ``SlamPipeline`` or ``SlamSystem``) into ``n_shards``:
     the first min(n_shards, visible cards) cards when ``obj`` is on the card (the reference's
     ``make_device_mesh(n_shards)``, without its refusal of fewer cards than shards: shard d runs on
-    entry ``d % len``), else ``obj``'s own device; ``obj``'s device alone where that is one card."""
+    entry ``d % len``), else ``obj``'s own device; ``obj``'s device alone where that is one card.  In a
+    process group (``mesh.initialize_multihost``) the first min(n_shards, its size) entries of the global
+    mesh of ``obj``'s device type (a collective: every rank calls it)."""
     dev = torch.device(obj.device)
+    if hosts.group_active():
+        every = make_device_mesh(device_type=dev.type)
+        return every[:min(n_shards, len(every))]
     n = min(n_shards, torch.cuda.device_count()) if dev.type == "cuda" else 1
     return make_device_mesh(n) if n > 1 else [dev]
+
+
+def _on_lead(devices, fn):
+    """``fn()`` once: here on a mesh of this process, on the rank that owns entry 0 of a global mesh, which
+    sends its value to every rank."""
+    lead = hosts.owner(devices, 0)
+    return fn() if lead is None else hosts.exchange(fn, root=lead)[0]
 
 
 def _hooks(shard_hooks, shards: list[int], pickled: bool, allowed: set | None = None) -> list[dict]:
@@ -210,7 +228,9 @@ def run_timesharded(
     entries of a mesh of more than one run at the same time in ``pool`` (a
     ``workers.WorkerPool`` or ``InProcess`` over ``devices``; default: a
     ``WorkerPool`` for the call); there every hook must pickle, and one
-    that does not raises ``ValueError`` naming it.  Returns ``poses`` (N, 4,
+    that does not raises ``ValueError`` naming it.  On a global mesh every
+    rank makes the same call, runs its own entries' shards (``pool`` over
+    those), and gets the stitch made on entry 0's rank.  Returns ``poses`` (N, 4,
     4) stitched in shard 0's frame, ``pose_ok`` (N,) of the core frames,
     ``segments`` (D, S+V, 4, 4) raw per shard, ``segments_ok``, ``S``,
     ``V``.
@@ -221,17 +241,17 @@ def run_timesharded(
     devices = default_mesh(pipeline, n_shards) if devices is None else devices
     poses, pose_ok = [None] * n_shards, [None] * n_shards
     groups = _entries(n_shards, len(devices))
-    crosses = crosses_processes(devices, pool)
-    calls = [(e, _track_shards, (shards, _hooks(shard_hooks, shards, crosses, {"draw_fn"}), S, V, seed))
-             for e, shards in groups.items()]
-    with executor(devices, pool) as ex:
-        values = ex.run(calls, obj=pipeline, frames=frames)
-    for shards, tracked in zip(groups.values(), values):
-        for d, (p, ok) in zip(shards, tracked):
+    values, _ = run_groups(
+        devices, pool, groups,
+        lambda shards, crosses: (_track_shards, (shards, _hooks(shard_hooks, shards, crosses, {"draw_fn"}), S, V,
+                                                 seed)),
+        obj=pipeline, frames=frames)
+    for e, shards in groups.items():
+        for d, (p, ok) in zip(shards, values[e]):
             poses[d], pose_ok[d] = p, ok
     poses, pose_ok = np.stack(poses), np.stack(pose_ok)
     return {
-        "poses": stitch_segments(poses, S, V, n, pose_ok=pose_ok),
+        "poses": _on_lead(devices, lambda: stitch_segments(poses, S, V, n, pose_ok=pose_ok)),
         "pose_ok": _core_ok(pose_ok, S, V, n),
         "segments": poses,
         "segments_ok": pose_ok,
@@ -300,7 +320,10 @@ def run_timesharded_system(
     ``cross_segment_loop_closure`` scores each shard's DB against every
     earlier shard's and verifies the best candidates in one batched call on
     shard 0's device; verified cross loops feed a global pose graph over
-    every shard's core keyframes on the stitched trajectory.
+    every shard's core keyframes on the stitched trajectory.  On a global
+    mesh every rank makes the same call and runs its own entries' shards;
+    the stitch, the cross pass and the global graph run on entry 0's rank,
+    and every rank returns the same result.
 
     Returns ``poses``, ``pose_ok``, ``segments``, ``segments_ok``,
     ``loops`` (in-shard core loops, then cross loops), ``cross_loops``,
@@ -320,14 +343,13 @@ def run_timesharded_system(
                "pose_graph": 0.0}
     shard_out = [None] * D
     groups = _entries(D, len(devices))
-    crosses = crosses_processes(devices, pool)
-    calls = [(e, _system_shards, (shards, _hooks(shard_hooks, shards, crosses), S, V, seed))
-             for e, shards in groups.items()]
-    with executor(devices, pool) as ex:
-        values = ex.run(calls, obj=system, frames=frames)
-        seconds["workers"] = [t1 - t0 for t0, t1 in ex.last_walls.values()]
-    for shards, outs in zip(groups.values(), values):
-        for d, o in zip(shards, outs):
+    values, walls = run_groups(
+        devices, pool, groups,
+        lambda shards, crosses: (_system_shards, (shards, _hooks(shard_hooks, shards, crosses), S, V, seed)),
+        obj=system, frames=frames)
+    seconds["workers"] = [t1 - t0 for t0, t1 in walls.values()]
+    for e, shards in groups.items():
+        for d, o in zip(shards, values[e]):
             shard_out[d] = o
             seconds["shards"][d], seconds["folds"][d] = o["seconds"]
 
@@ -338,31 +360,37 @@ def run_timesharded_system(
     pose_ok = [o["pose_ok"] for o in shard_out]
     kf_enabled = [o["kf_enabled"] for o in shard_out]
 
-    t0 = time.perf_counter()
     segments, pose_ok = np.stack(segments), np.stack(pose_ok)
-    stitched = stitch_segments(segments, S, V, n, pose_ok=pose_ok)
-    seconds["stitch"] = time.perf_counter() - t0
 
-    # --- cross-segment loop closure and the global pose graph ----------------------------
-    cross_loops: list[dict] = []
-    global_kf: list[int] = []
-    pose_graph_applied = False
-    if system.loop_closure is not None and D > 1:
+    def serial() -> tuple:
+        """The stitch, the cross-segment pass and the global pose graph, with their seconds."""
         t0 = time.perf_counter()
-        lead = replica_on(system, devices[0])  # the cross pass and the global graph run on shard 0's device
-        cross_loops = cross_segment_loop_closure(lead, dbs, D, S, V, n, seed=seed)
-        seconds["cross"] = time.perf_counter() - t0
-        # each shard's core keyframes at global ids (lead-in keyframes repeat the previous shard's tail)
-        for d in range(D):
-            lo, hi = (0, S) if d == 0 else (V, V + S)
-            offset = _shard_start(d, S, V)
-            global_kf.extend(offset + int(f) for f in np.nonzero(kf_enabled[d])[0]
-                             if lo <= f < hi and offset + f < n)
-        if cross_loops and system.enable_pose_graph and len(global_kf) >= 2:
+        stitched = stitch_segments(segments, S, V, n, pose_ok=pose_ok)
+        secs = {"stitch": time.perf_counter() - t0, "cross": 0.0, "pose_graph": 0.0}
+        cross_loops: list[dict] = []
+        global_kf: list[int] = []
+        pose_graph_applied = False
+        if system.loop_closure is not None and D > 1:
             t0 = time.perf_counter()
-            stitched = lead._apply_pose_graph(stitched, global_kf, all_loops + cross_loops)
-            seconds["pose_graph"] = time.perf_counter() - t0
-            pose_graph_applied = True
+            # the cross pass and the global graph run on shard 0's device
+            lead = replica_on(system, _device(devices[0]))
+            cross_loops = cross_segment_loop_closure(lead, dbs, D, S, V, n, seed=seed)
+            secs["cross"] = time.perf_counter() - t0
+            # each shard's core keyframes at global ids (lead-in keyframes repeat the previous shard's tail)
+            for d in range(D):
+                lo, hi = (0, S) if d == 0 else (V, V + S)
+                offset = _shard_start(d, S, V)
+                global_kf.extend(offset + int(f) for f in np.nonzero(kf_enabled[d])[0]
+                                 if lo <= f < hi and offset + f < n)
+            if cross_loops and system.enable_pose_graph and len(global_kf) >= 2:
+                t0 = time.perf_counter()
+                stitched = lead._apply_pose_graph(stitched, global_kf, all_loops + cross_loops)
+                secs["pose_graph"] = time.perf_counter() - t0
+                pose_graph_applied = True
+        return stitched, cross_loops, global_kf, pose_graph_applied, secs
+
+    stitched, cross_loops, global_kf, pose_graph_applied, secs = _on_lead(devices, serial)
+    seconds.update(secs)
 
     return {
         "poses": stitched,

@@ -1,4 +1,4 @@
-"""One worker process per mesh entry: the dist layer's whole-run programs on distinct devices at once.
+"""One worker process per mesh entry: the dist layer's programs on distinct devices at once.
 
 The reference runs one program per device at the same time (``shard_map``
 over ``make_device_mesh(n)``, ``tpuslam/dist/mesh.py``).  The port's host
@@ -6,7 +6,8 @@ code is eager Python that keeps a card 10-17% busy, so devices driven from
 one interpreter would share its lock over exactly that work.  As PyTorch
 drives several cards (torchrun, DDP), ``WorkerPool(devices)`` gives each
 entry of the mesh a process of its own: a ``ProcessPoolExecutor`` of one
-worker; two entries that name one device give two processes on that card.
+worker; two entries that name one device give two processes, two replicas
+and two generators on that card.
 
 - Processes start with ``spawn``: ``fork`` is unsafe once the parent has
   initialised CUDA.  Before it starts them, the parent builds the kernel
@@ -16,23 +17,37 @@ worker; two entries that name one device give two processes on that card.
   ``max(1, min(the parent's torch threads, cores // n))`` torch threads.
   It imports ``tpuslam_torch``, so TF32 is off there as well
   (``info[i]["tf32"]``).  A worker opens no frame loader: frames reach it
-  as a file it maps (below).
+  as a file it maps, or on its card (below).
 - A worker builds each replica it needs once, from ``mesh.recipe(obj)``
   (``mesh.from_recipe``, as ``mesh.replica_on`` builds one), and keeps it under the
   recipe's hash; never from the parent's tensors.  A draw hook that cannot
   be pickled raises ``ValueError`` naming it.
-- ``run(calls, obj, frames)`` sends every entry its calls at once; each
-  worker runs its own in order, ``fn(replica, frames, *args)``, and answers
-  with the values, its wall interval (``last_walls``: ``time.monotonic``,
-  one clock for every process of a host) and its kernel launches, which
-  ``kernels.launch_counts()`` adds.  Tensors cross either way as numpy
-  arrays on the host.  An answer's arrays travel out of band: the worker
-  copies their bytes into one block of POSIX shared memory and the parent
-  copies them out and unlinks it, so the pipe carries only the pickle's
-  skeleton (``last_answers``: the bytes, and the seconds each side spent).
-- Frames reach a worker as a file it maps read-only: an ``np.memmap`` by
-  its own path and offset, anything else copied once into POSIX shared
-  memory for the call.  A worker reads only the rows it runs.
+- ``run(calls, obj, frames, entry_frames)`` sends every entry its calls at
+  once; each worker runs its own in order, ``fn(replica, frames, *args)``,
+  and answers with the values, its wall interval (``last_walls``:
+  ``time.monotonic``, one clock for every process of a host) and its kernel
+  launches, which ``kernels.launch_counts()`` adds.  Tensors cross either
+  way as numpy arrays on the host.  An answer's arrays travel out of band:
+  the worker copies their bytes into one block of POSIX shared memory and
+  the parent copies them out and unlinks it, so the pipe carries only the
+  pickle's skeleton (``last_answers``: the bytes, and the seconds each side
+  spent).
+- Values stay resident in a worker between calls: an argument ``HELD``
+  reaches ``fn`` as the worker's own dict, which outlives the call (the
+  per-chunk step, ``mesh.ShardedStep``, keeps each sequence's state there
+  and hands the parent a handle).
+- Frames reach a worker in one of three ways.  ``frames`` (every entry
+  reads the rows it runs): an ``np.memmap`` by its own path and offset,
+  anything else copied once into POSIX shared memory for the call.
+  ``entry_frames[i]`` (entry i's own rows, each call, the per-chunk step)
+  go through a block of entry i's own, made at its first call and reused
+  by every later one (grown when a call needs more), which the worker opens
+  once and keeps: a CUDA tensor on the worker's card is copied into a
+  buffer on that card, shared through CUDA IPC; anything else into a
+  block of POSIX shared memory (``last_answers``: ``send_s``, the parent's
+  staging, and ``open_s``, the worker's).  A fresh IPC handle a call costs
+  the worker an open each time, and a fresh block of shared memory a
+  first touch of every page (``PERF.md`` §6 has the times on the card).
 - No silent fallback.  A call that raises in a worker raises
   ``WorkerError`` in the parent with the worker's index, device and
   traceback, once the other workers have answered; a worker that dies
@@ -42,8 +57,9 @@ worker; two entries that name one device give two processes on that card.
 
 ``InProcess(devices)`` has the same interface and runs every call in the
 parent, entry after entry, on ``mesh.replica_on``'s replica for each
-device: the path of a mesh of one entry, and the in-turn run a pool's
-results are held against.  ``executor`` picks between the two.
+device, with a dict of its own for ``HELD``: the path of a mesh of one
+entry, and the in-turn run a pool's results are held against.
+``executor`` picks between the two.
 """
 
 from __future__ import annotations
@@ -57,7 +73,7 @@ import time
 import traceback
 from concurrent.futures import FIRST_EXCEPTION, ProcessPoolExecutor, wait
 from concurrent.futures.process import BrokenProcessPool
-from contextlib import contextmanager
+from contextlib import contextmanager, suppress
 from multiprocessing.shared_memory import SharedMemory
 from pathlib import Path
 from typing import Callable, Sequence
@@ -69,6 +85,23 @@ import torch
 Call = tuple[int, Callable, tuple]
 
 _SHM_DIR = Path("/dev/shm")  # where POSIX shared memory appears as files on Linux
+
+
+class _Held:
+    """The type of ``HELD``: pickled by name, so a worker unpickles the same object."""
+
+    def __reduce__(self):
+        return "HELD"
+
+    def __repr__(self) -> str:
+        return "HELD"
+
+
+HELD = _Held()  # in a call's arguments: the executor's dict of values that outlive the call
+
+
+def _with_held(args: tuple, held: dict) -> tuple:
+    return tuple(held if a is HELD else a for a in args)
 
 
 class WorkerError(RuntimeError):
@@ -172,9 +205,92 @@ def _frames_file(frames):
         shm.unlink()
 
 
+class _Block:
+    """A block of POSIX shared memory that one entry's frames go through on every call."""
+
+    def __init__(self, nbytes: int):
+        self.shm = SharedMemory(create=True, size=max(nbytes, 1))
+        self.size = self.shm.size
+        self.path = _SHM_DIR / self.shm.name
+        if not self.path.exists():
+            self.close()
+            raise RuntimeError(f"POSIX shared memory {self.shm.name!r} is not at {self.path}: the worker pool "
+                               "needs Linux")
+
+    def put(self, x) -> tuple:
+        """``x`` (an array or a CPU tensor) copied into the block → the worker's description of it."""
+        arr = x.numpy() if torch.is_tensor(x) else np.asarray(x)
+        view = np.ndarray(arr.shape, arr.dtype, buffer=self.shm.buf)
+        view[...] = arr
+        del view
+        return ("block", str(self.path), arr.dtype.str, tuple(arr.shape))
+
+    def close(self) -> None:
+        self.shm.close()
+        self.shm.unlink()
+
+
+class _CardBlock:
+    """A buffer on an entry's card that its frames go through on every call: shared once as a CUDA IPC
+    handle, which the worker opens once and keeps (``token`` names it)."""
+
+    def __init__(self, nbytes: int, device: torch.device):
+        from torch.multiprocessing.reductions import reduce_tensor
+
+        self.buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
+        self.size = self.buf.numel()
+        self.ipc = reduce_tensor(self.buf)[1]
+        self.token = os.urandom(8).hex()
+
+    def put(self, x: torch.Tensor) -> tuple:
+        """``x`` (on the buffer's card) copied into the buffer, the copy finished → the worker's description."""
+        n = x.numel() * x.element_size()
+        self.buf[:n].view(x.dtype).view(x.shape).copy_(x)
+        torch.cuda.current_stream(self.buf.device).synchronize()  # the worker reads it from another process
+        return ("cuda", self.token, self.ipc, str(x.dtype).removeprefix("torch."), tuple(x.shape))
+
+    def close(self) -> None:
+        del self.buf
+
+
+def _entry_frames_desc(x, device: torch.device, blocks: dict, i: int):
+    """How entry ``i`` (on ``device``) receives its own rows ``x``: a CUDA tensor on its card through the
+    entry's buffer there (CUDA IPC), anything else through the entry's block of shared memory; either made,
+    or grown, here."""
+    from tpuslam_torch.dist.mesh import _canonical
+
+    on_card = torch.is_tensor(x) and x.is_cuda and _canonical(x.device) == _canonical(device)
+    if not on_card:
+        x = x.detach().cpu() if torch.is_tensor(x) else np.asarray(x)
+    nbytes = x.element_size() * x.numel() if torch.is_tensor(x) else x.nbytes
+    kind = _CardBlock if on_card else _Block
+    block = blocks.get(i)
+    if not isinstance(block, kind) or block.size < nbytes:
+        if block is not None:
+            blocks.pop(i).close()
+        blocks[i] = _CardBlock(nbytes, x.device) if on_card else _Block(nbytes)
+    return blocks[i].put(x)
+
+
 def _open_frames(desc):
     if desc is None:
         return None
+    if desc[0] == "cuda":  # the entry's buffer on its card, opened at its first call and kept
+        from torch.multiprocessing.reductions import rebuild_cuda_tensor
+
+        _, token, ipc, dtype, shape = desc
+        if _WORKER.get("card", (None,))[0] != token:
+            _WORKER["card"] = (token, rebuild_cuda_tensor(*ipc))
+        dtype = getattr(torch, dtype)
+        n = int(np.prod(shape)) * dtype.itemsize
+        return _WORKER["card"][1][:n].view(dtype).view(shape)
+    if desc[0] == "block":  # mapped once, writable so that torch.from_numpy takes it without a copy
+        _, path, dtype, shape = desc
+        if _WORKER.get("block", (None,))[0] != path:
+            _WORKER["block"] = (path, np.memmap(path, dtype=np.uint8, mode="r+"))
+        mm = _WORKER["block"][1]
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        return mm[:n].view(np.dtype(dtype)).reshape(shape)
     path, dtype, shape, offset = desc
     return np.memmap(path, dtype=np.dtype(dtype), mode="r", shape=shape, offset=offset)
 
@@ -212,29 +328,38 @@ def _start(index: int, device: str, threads: int) -> dict:
         dev = torch.device("cuda", 0 if dev.index is None else dev.index)
         torch.cuda.set_device(dev)
         torch.zeros(1, device=dev)  # the context now, not inside the first call
-    _WORKER.update(device=dev, replicas={})
+    _WORKER.update(device=dev, replicas={}, held={})
     return {"index": index, "pid": os.getpid(), "device": str(dev), "threads": torch.get_num_threads(),
             "tf32": bool(torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32),
             "matmul_precision": torch.get_float32_matmul_precision()}
 
 
+def _drop_card() -> None:
+    """Let go of the entry's frame buffer on the card, so that the parent may free it."""
+    _WORKER.pop("card", None)
+
+
 def _serve(key: str | None, rec: bytes | None, desc, batch: bytes) -> tuple:
-    """One entry's calls, in order → ``("ok", pickle, block, sizes, wall, launches, pack seconds)`` or
-    ``("error", where, traceback)``."""
+    """One entry's calls, in order → ``("ok", pickle, block, sizes, wall, launches, pack seconds, frames' open
+    seconds)`` or ``("error", where, traceback)``."""
     from tpuslam_torch.dist.mesh import from_recipe
     from tpuslam_torch.kernels import launch_counts
 
-    dev, replicas = _WORKER["device"], _WORKER["replicas"]
+    dev, replicas, held = _WORKER["device"], _WORKER["replicas"], _WORKER["held"]
     what = "building the replica"
     try:
         if key is not None and key not in replicas:
             replicas[key] = from_recipe(pickle.loads(rec), dev)
+        what = "opening the frames"
+        t0 = time.perf_counter()
         frames = _open_frames(desc)
+        open_s = time.perf_counter() - t0
         before = launch_counts()
         t0 = time.monotonic()
         values = []
         for fn, args in pickle.loads(batch):
             what = _name(fn)
+            args = _with_held(args, held)
             values.append(fn(replicas[key], frames, *args) if key is not None else fn(*args))
         _sync(dev)
         wall = (t0, time.monotonic())
@@ -243,7 +368,8 @@ def _serve(key: str | None, rec: bytes | None, desc, batch: bytes) -> tuple:
         what = "sending the answer"
         t1 = time.perf_counter()
         blob, name, sizes = _pack(values)
-        return "ok", blob, name, sizes, wall, {k: after[k] - before[k] for k in after}, time.perf_counter() - t1
+        return ("ok", blob, name, sizes, wall, {k: after[k] - before[k] for k in after}, time.perf_counter() - t1,
+                open_s)
     except Exception:
         return "error", what, traceback.format_exc()
 
@@ -270,6 +396,7 @@ class WorkerPool:
         self.closed = False
         self.last_walls: dict[int, tuple[float, float]] = {}
         self.last_answers: dict[int, dict] = {}
+        self._blocks: dict[int, _Block | _CardBlock] = {}  # entry → its block for entry_frames, kept across calls
         if any(d.type == "cuda" for d in self.devices):
             from tpuslam_torch.kernels.build import library
 
@@ -315,8 +442,10 @@ class WorkerPool:
                 raise WorkerError(f"worker {i} ({self.devices[i]}) failed: {exc!r}") from exc
         return {i: f.result() for i, f in futures.items()}
 
-    def run(self, calls: Sequence[Call], obj=None, frames=None) -> list:
-        """Every entry's calls in its worker, the entries at the same time; the values in call order."""
+    def run(self, calls: Sequence[Call], obj=None, frames=None, entry_frames: dict | None = None) -> list:
+        """Every entry's calls in its worker, the entries at the same time; the values in call order.
+
+        ``frames`` reach every entry; ``entry_frames[i]``, where given, reaches entry i in their place."""
         if self.closed:
             raise RuntimeError("the worker pool is closed")
         by_entry = _by_entry(calls, len(self.devices))
@@ -333,8 +462,14 @@ class WorkerPool:
                 batches[i] = _dumps([(calls[j][1], tuple(calls[j][2])) for j in idx])
             except Exception as exc:
                 raise ValueError(f"the calls for worker {i} cannot be pickled: {exc}") from exc
+        descs, send_s = {}, {}
+        for i in by_entry:
+            if entry_frames is not None and i in entry_frames:
+                t0 = time.perf_counter()
+                descs[i] = _entry_frames_desc(entry_frames[i], self.devices[i], self._blocks, i)
+                send_s[i] = time.perf_counter() - t0
         with _frames_file(frames) as desc:
-            replies = self._gather({i: self._executors[i].submit(_serve, key, rec, desc, b)
+            replies = self._gather({i: self._executors[i].submit(_serve, key, rec, descs.get(i, desc), b)
                                     for i, b in batches.items()})
         from tpuslam_torch.kernels import add_launch_counts
 
@@ -346,11 +481,12 @@ class WorkerPool:
             if msg[0] != "ok":
                 errors.append((i, msg))
                 continue
-            _, blob, name, sizes, wall, counts, pack_s = msg
+            _, blob, name, sizes, wall, counts, pack_s, open_s = msg
             t0 = time.perf_counter()
             vals = _unpack(blob, name, sizes)
             self.last_answers[i] = {"bytes": len(blob) + sum(sizes), "pack_s": pack_s,
-                                    "unpack_s": time.perf_counter() - t0}
+                                    "unpack_s": time.perf_counter() - t0, "send_s": send_s.get(i, 0.0),
+                                    "open_s": open_s}
             add_launch_counts(counts)
             self.last_walls[i] = wall
             for j, v in zip(idx, vals):
@@ -365,25 +501,43 @@ class WorkerPool:
         if self.closed:
             return
         self.closed = True
+        # each executor's manager thread reaps its process: wait for it first, since a second waitpid on the
+        # same child from here could lose the race and leave the process object believing it still runs
+        managers = [getattr(ex, "_executor_manager_thread", None) for ex in self._executors]
+        deadline = time.monotonic() + timeout
+        cards = []
+        for i, b in self._blocks.items():
+            if isinstance(b, _CardBlock) and timeout > 0:
+                with suppress(RuntimeError):  # a broken executor: its worker is gone already
+                    cards.append(self._executors[i].submit(_drop_card))
+        if cards:
+            wait(cards, timeout=min(5.0, timeout))
         for ex in self._executors:
             ex.shutdown(wait=False, cancel_futures=True)
-        deadline = time.monotonic() + timeout
+        for thread in managers:
+            if thread is not None:
+                thread.join(max(0.0, deadline - time.monotonic()))
         for proc in self._procs:
             proc.join(max(0.0, deadline - time.monotonic()))
             if proc.is_alive():
                 proc.kill()
                 proc.join()
+        for block in self._blocks.values():
+            block.close()
+        self._blocks.clear()
 
 
 class InProcess:
     """``WorkerPool``'s interface in this process: each entry's calls in turn, on ``mesh.replica_on``'s
-    replica for its device."""
+    replica for its device (one per recipe and device, kept across calls), ``HELD`` its own dict."""
 
     crosses_processes = False
 
     def __init__(self, devices: Sequence[torch.device | str]):
         self.devices = [torch.device(d) for d in devices]
         self.last_walls: dict[int, tuple[float, float]] = {}
+        self.held: dict = {}
+        self._replicas: dict[tuple[str, torch.device], object] = {}
 
     def __enter__(self) -> "InProcess":
         return self
@@ -391,18 +545,29 @@ class InProcess:
     def __exit__(self, *exc) -> None:
         pass
 
-    def run(self, calls: Sequence[Call], obj=None, frames=None) -> list:
-        from tpuslam_torch.dist.mesh import _Replicas
+    def _replica(self, obj, i: int):
+        from tpuslam_torch.dist.mesh import _canonical, recipe, replica_on
 
-        replicas = None if obj is None else _Replicas(obj, self.devices)
+        dev = _canonical(self.devices[i])
+        if _canonical(obj.device) == dev:
+            return obj
+        key = (hashlib.sha256(_dumps(recipe(obj))).hexdigest(), dev)
+        if key not in self._replicas:
+            self._replicas[key] = replica_on(obj, dev)
+        return self._replicas[key]
+
+    def run(self, calls: Sequence[Call], obj=None, frames=None, entry_frames: dict | None = None) -> list:
         values: list = [None] * len(calls)
         self.last_walls = {}
         for i, idx in _by_entry(calls, len(self.devices)).items():
+            replica = None if obj is None else self._replica(obj, i)
+            x = entry_frames[i] if entry_frames is not None and i in entry_frames else frames
             t0 = time.monotonic()
             for j in idx:
                 _, fn, args = calls[j]
-                values[j] = fn(*args) if replicas is None else fn(replicas(i), frames, *args)
-            _sync(replicas(i).device if replicas is not None else self.devices[i])
+                args = _with_held(tuple(args), self.held)
+                values[j] = fn(*args) if replica is None else fn(replica, x, *args)
+            _sync(replica.device if replica is not None else self.devices[i])
             self.last_walls[i] = (t0, time.monotonic())
         return values
 
