@@ -1,0 +1,7 @@
+"""brief_patches_roofline: the brief_patches kernel's bound over its device time in the traced window."""
+
+from portbench.core.readers import roofline
+
+
+def read(record: dict) -> float | None:
+    return roofline(record, ["brief_patches"])

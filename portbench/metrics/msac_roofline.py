@@ -1,0 +1,7 @@
+"""msac_roofline: the msac kernel's bound over its device time in the traced window."""
+
+from portbench.core.readers import roofline
+
+
+def read(record: dict) -> float | None:
+    return roofline(record, ["msac"])
