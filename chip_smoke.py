@@ -55,8 +55,10 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    fixture frames' descriptors, flat (256 words) and a (16, 16) tree:
    centroids identical, IDF within 1e-6, seconds of each;
    profiling — ``StageTimer`` and ``time_fn`` around one main-path chunk,
-   and ``device_trace`` of one chunk: its Chrome trace must name kernels of
-   the main path among its CUDA kernel events;
+   and ``device_trace`` of one chunk: the span recorder must hold the
+   chunk's ``vo.step`` tree with its host syncs counted, and its Chrome
+   trace must hold the ``vo.*`` ranges and name kernels of the main path
+   among its CUDA kernel events;
 8. pnp — PnP tracking (``tracking="pnp"``) with ``configs/`` over the same
    96 frames at batch 16, a warm-up pass and a timed pass: kernels 1-4 six
    launches each, kernel 5 none; the trajectory gates of the VO paths; at
@@ -273,8 +275,9 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    loop into the prologue) and memory allocated flat from the ring's first
    overflow to the last chunk (within 16 MiB); the report, the memory after
    each chunk summarised;
-24. profile — ``tools/profile_stages.py`` on one main-path chunk and one
-   pyramid chunk (kernel 5) and ``tools/profile_slam.py`` (full SLAM in VO
+24. profile — ``tools/profile_stages.py`` (the step's span table) on one
+   main-path chunk and one pyramid chunk (kernel 5) and
+   ``tools/profile_slam.py`` (full SLAM in VO
    and PnP mode, localization against the PnP run's map) over the 96
    frames: their stage tables.
 Each phase from 7 on prints its seconds.
@@ -1061,9 +1064,10 @@ def phase_vocab_fit(pipeline, frames_np: np.ndarray, card: str) -> dict:
 
 
 def phase_profiling(pipeline, chunks: torch.Tensor, valid: torch.Tensor, trace_dir: Path) -> dict:
-    """time_fn and StageTimer around one main-path chunk, and device_trace writing a trace of one chunk
-    whose CUDA kernel events name kernels of the main path."""
-    from tpuslam_torch.utils.profiling import StageTimer, device_trace, time_fn
+    """time_fn and StageTimer around one main-path chunk, and device_trace of one chunk: the span
+    recorder holds its ``vo.step`` tree and host syncs, and the trace its ``vo.*`` ranges and CUDA kernel
+    events naming kernels of the main path."""
+    from tpuslam_torch.utils.profiling import RECORDER, StageTimer, device_trace, time_fn
 
     state = pipeline.initial_state()
 
@@ -1076,20 +1080,32 @@ def phase_profiling(pipeline, chunks: torch.Tensor, valid: torch.Tensor, trace_d
             chunk()
             torch.cuda.synchronize()
     timed = time_fn(chunk, warmup=1, iters=3)
+    RECORDER.clear()
     with device_trace(trace_dir):
         chunk()
+    steps = list(RECORDER.steps)
+    if [s.name for s in steps] != ["vo.step"] or steps[0].counters.get("vo.host_syncs") is None:
+        raise AssertionError(f"the recorder holds {[(s.name, s.counters) for s in steps]}, not one counted vo.step")
+    stages = ("vo.upload", "vo.undistort", "vo.detect", "vo.match", "vo.draws", "vo.pose", "vo.triangulate",
+              "vo.chain")
+    spans_ms = {name: steps[0].total_ns(name) / 1e6 for name in ("vo.step", *stages)}
     path = trace_dir / "trace.json"
     events = json.loads(path.read_text())["traceEvents"]
+    missing = sorted({s.name for s in steps[0].spans} - {e.get("name", "") for e in events})
+    if missing:
+        raise AssertionError(f"device_trace: the ranges {missing} of the recorded step are not in the trace")
     names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     ours = sorted(n for n in names if any(k in n for k in ("frontend_kernel", "extract_kernel", "own_bin_kernel",
                                                             "msac_kernel")))
     if not ours:
         raise AssertionError(f"device_trace: no kernel of the main path among {len(names)} kernel names")
     out = {"stage_timer": timer.report(), "time_fn": timed, "trace_bytes": path.stat().st_size,
-           "trace_kernel_events": sum(1 for e in events if e.get("cat") == "kernel"), "trace_names": ours}
+           "trace_kernel_events": sum(1 for e in events if e.get("cat") == "kernel"), "trace_names": ours,
+           "spans_ms": spans_ms, "host_syncs": steps[0].counters["vo.host_syncs"]}
     log(f"[profiling] StageTimer chunk {out['stage_timer']['chunk']['mean_ms']:.2f} ms (2 calls), time_fn "
         f"{timed['per_call_ms']:.2f} ms a chunk (3 calls, synchronised); trace {out['trace_bytes']} bytes, "
-        f"{out['trace_kernel_events']} kernel events, naming {ours}")
+        f"{out['trace_kernel_events']} kernel events, naming {ours}; the traced chunk's spans (host ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in spans_ms.items()) + f", host syncs {out['host_syncs']}")
     return out
 
 
@@ -3659,7 +3675,7 @@ def phase_profile(camera, config_dir: Path, frames_np: np.ndarray, card: str) ->
     for name, cfg_dir, fused in (("main", config_dir, False), ("pyramid", config_dir / "multiscale", True)):
         pipe = SlamPipeline(Camera.from_yaml(cfg_dir / "camera.yml") if fused else camera,
                             SlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH), device="cuda", nms_fused=fused)
-        out[name] = profile_stages.profile_stages(pipe, chunk, reps=10)
+        out[name] = profile_stages.profile_stages(pipe, chunk[None])
         log(f"[{label}] profile_stages, {name} ({cfg_dir.relative_to(REPO)}), batch {BATCH}, on {card}:\n"
             + profile_stages.format_table(out[name]))
     cfg = SlamConfig.from_yaml_dir(config_dir, batch_size=BATCH)

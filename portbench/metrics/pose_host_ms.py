@@ -1,0 +1,12 @@
+"""pose_host_ms: host ms a traced step inside the port's ``vo.pose`` span, the pose stage:
+estimate_relative_pose (hypotheses, kernel 4, LO, cheirality).
+
+Read from the port's span recorder (``tpuslam_torch.utils.profiling.RECORDER``, through
+``portbench/core/spans.py``): the mean over the traced steps; None without the recorder or the span.
+"""
+
+from portbench.core.spans import span_ms
+
+
+def read(record: dict) -> float | None:
+    return span_ms("vo.pose")

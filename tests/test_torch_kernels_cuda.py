@@ -61,6 +61,10 @@ unbatched calls on the card (success and inliers identical, R 1e-4, t
 1e-3); an unbatched ``motion_pnp`` and ``ransac_pnp`` on the card equal
 their 2-D formulation, the products they computed before the problem axis,
 bit for bit.
+
+The span recorder counts the synchronising CUDA calls made inside a step:
+a planted ``.item()`` counts 1 in its span, and the small batched VO
+step's own count is printed.
 """
 
 from pathlib import Path
@@ -1163,6 +1167,61 @@ def test_batched_vo_step_on_card(dev):
             torch.testing.assert_close(results[s].poses[:, :3, 3], w.poses[:, :3, 3], rtol=0, atol=1e-3)
             assert states[s].frame_idx == want[s].frame_idx
             assert results[s].pose_ok[1:n].all()
+
+
+def test_span_recorder_counts_host_syncs_on_card(dev, capsys):
+    """The recorder's sync counter (``utils/profiling.py``): a planted ``.item()`` inside a span counts
+    1, booked to that span; the sync debug mode comes back, also from a step that raises; each span
+    agrees with its profiler range within 1 ms.  Then the VO step's own count, on the small batched
+    step of ``test_batched_vo_step_on_card`` (printed), with its outputs the same bits recorded or not."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuslam_torch.common.camera import Camera
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.model.slam import SlamPipeline
+    from tpuslam_torch.utils import profiling
+
+    rec = profiling.StageTimer()
+    x = torch.ones(8, device=dev)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with rec.step("t.step", sync_counter="t.syncs"):
+            y = x * 2  # no sync
+            with rec.span("t.read"):
+                assert (y + 1).sum().item() == 24.0
+        with pytest.raises(RuntimeError), rec.step("t.fails", sync_counter="t.syncs"):
+            raise RuntimeError
+    assert torch.cuda.get_sync_debug_mode() == mode
+    first = rec.steps[0]
+    assert first.counters == {"t.syncs": 1} and [s.counts for s in first.spans] == [{}, {"t.syncs": 1}]
+    ranges = {e.name(): e for e in prof.profiler.kineto_results.events()
+              if e.is_user_annotation() and e.device_type() != torch.autograd.DeviceType.CUDA}
+    for s in first.spans:
+        e = ranges[s.name]
+        assert abs(s.start_ns - e.start_ns()) < 1_000_000 and abs(s.end_ns - e.start_ns() - e.duration_ns()) < 1_000_000
+
+    cfg_dir = IMAGES.parent.parent.parent / "configs"
+    cfg = SlamConfig.from_yaml_dir(cfg_dir, batch_size=4)
+    cfg = dataclasses.replace(cfg, detector=dataclasses.replace(cfg.detector, max_keypoints=512),
+                              pose=dataclasses.replace(cfg.pose, num_hypotheses=256))
+    pipe = SlamPipeline(Camera.from_yaml(cfg_dir / "camera.yml"), cfg, device=dev)
+    frames = torch.stack([_full_frames(10)[2 * s: 2 * s + 4] for s in range(3)]).to(dev)
+    valid = torch.ones((3, 4), dtype=torch.bool)
+    states = [pipe.initial_state() for _ in range(3)]
+    off = pipe.process_chunks(frames, valid, states, [3, 4, 5])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        on = pipe.process_chunks(frames, valid, states, [3, 4, 5])
+    step = profiling.RECORDER.steps[-1]
+    for a, b in zip(off[0], on[0]):
+        assert all(torch.equal(u, v) for u, v in zip(a, b) if isinstance(u, torch.Tensor))
+    syncs = step.counters["vo.host_syncs"]
+    where = {s.name: s.counts["vo.host_syncs"] for s in step.spans if s.counts.get("vo.host_syncs")}
+    with capsys.disabled():
+        print(f"\n[host syncs] the VO step (3 x 4 frames): {syncs}, by innermost span {where}")
+    assert syncs == sum(where.values())
 
 
 def test_batched_ransac_pnp_on_card(dev):

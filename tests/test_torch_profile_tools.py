@@ -1,13 +1,16 @@
 """The port's stage profiles (``tpuslam_torch/tools/profile_stages.py``, ``profile_slam.py``) on the CPU.
 
 Both run at the small shapes (K 512, 256 two-view hypotheses) and return
-every named stage with a finite time: the profile of one VO chunk of 10
+every named stage with a finite time: the span table of one VO step of 10
 fixture frames with ``configs/`` and of 4 with ``configs/multiscale``
-(kernel 5's stages, through its plain twin), each stage timed on its first
-call (``reps`` 0); and the stages of full SLAM over 10 frames in VO and PnP
-mode and of localization against the PnP run's map (batch 5, the tree
+(kernel 5's level spans, through its plain twin), each span of the step's
+own ``vo.step`` tree; and the stages of full SLAM over 10 frames in VO and
+PnP mode and of localization against the PnP run's map (batch 5, the tree
 vocabulary; the frozen run relocalizes its first frame).  No time here is
-a device time: the device fields are None.
+a device time: the device fields are None.  The span table's reduction of
+device rows (each launch booked to the innermost span its launch call ran
+in, by correlation id; idle gaps by their middle) is held on a few
+synthetic profiler events.
 """
 
 import math
@@ -23,8 +26,9 @@ from tpuslam_torch.config.schema import SlamConfig
 from tpuslam_torch.model.slam import SlamPipeline
 from tpuslam_torch.tools import profile_slam, profile_stages
 
-STAGES = ["undistort", "NMS + top-k", "kernels 2-3, orientation, bits", "matching", "draws (a generator a frame)",
-          "estimate_relative_pose", "triangulation", "scale and chaining"]
+SPANS = ["vo.step", "vo.upload", "vo.undistort", "vo.detect", "detect.corners", "detect.describe", "vo.match",
+         "vo.draws", "vo.pose", "pose.hypotheses", "pose.msac", "pose.lo", "pose.cheirality", "vo.triangulate",
+         "vo.chain", "vo.split"]
 
 
 @pytest.mark.parametrize("cfg", ["", "multiscale"])
@@ -34,16 +38,85 @@ def test_profile_stages_on_the_cpu(data_dir, cfg):
     pipeline = SlamPipeline(Camera.from_yaml(cfg_dir / "camera.yml"),
                             _small(SlamConfig.from_yaml_dir(cfg_dir, batch_size=batch)), device="cpu",
                             nms_fused=bool(cfg))
-    report = profile_stages.profile_stages(pipeline, torch.from_numpy(profile_stages.fixture_chunk(batch)), reps=0)
-    names = [r["stage"] for r in report["stages"]]
-    want = STAGES if not cfg else ["undistort", "resize (3 levels)", "kernel 5 (4 levels)", "top-k"] + STAGES[2:]
-    if not cfg:
-        want = want[:1] + ["kernel 1 (1 level)"] + want[1:]
-    assert names == want
-    for r in report["stages"]:
-        assert math.isfinite(r["ms"]) and r["ms"] > 0 and r["bound_us"] > 0 and r["bound_by"] in ("bytes", "operations")
-    assert math.isfinite(report["chunk_ms"]) and report["busy_share"] is None and report["device_kernels"] is None
-    assert report["batch"] == batch and "estimate_relative_pose" in profile_stages.format_table(report)
+    report = profile_stages.profile_stages(pipeline, torch.from_numpy(profile_stages.fixture_chunk(batch))[None])
+    rows = {r["span"]: r for r in report["spans"]}
+    want = SPANS if not cfg else SPANS[:6] + ["detect.resize"] + SPANS[6:]
+    assert list(rows) == want
+    levels = 4 if cfg else 1
+    assert rows["detect.corners"]["calls"] == rows["detect.describe"]["calls"] == levels
+    assert rows.get("detect.resize", {"calls": 0})["calls"] == levels - 1
+    for r in report["spans"]:
+        assert r["calls"] >= 1 and math.isfinite(r["host_ms"]) and r["host_ms"] >= r["self_ms"] >= 0
+        assert r["launches"] is None and r["device_ms"] is None and r["idle_ms"] is None and r["syncs"] is None
+        kernel_span = r["span"] in ("detect.corners", "detect.describe", "pose.msac")
+        assert (r["bound_us"] is not None and r["bound_us"] > 0) == kernel_span
+    assert abs(sum(r["self_ms"] for r in report["spans"]) - report["step_ms"]) < 1e-6 * report["step_ms"] + 1e-9
+    assert report["host_syncs"] is None and report["launches"] is None and report["device_ms"] is None
+    assert report["batch"] == batch and report["sequences"] == 1 and "pose.msac" in profile_stages.format_table(report)
+
+
+class _Event:
+    """The few fields of a profiler event that the span table reads."""
+
+    def __init__(self, name, start, end, corr, device=False, annotation=False):
+        self._v = (name, start, end, corr, device, annotation)
+
+    def name(self):
+        return self._v[0]
+
+    def start_ns(self):
+        return self._v[1]
+
+    def duration_ns(self):
+        return self._v[2] - self._v[1]
+
+    def correlation_id(self):
+        return self._v[3]
+
+    def device_type(self):
+        return torch.autograd.DeviceType.CUDA if self._v[4] else torch.autograd.DeviceType.CPU
+
+    def is_user_annotation(self):
+        return self._v[5]
+
+
+def test_span_table_books_device_rows_to_spans():
+    """Two launches from ``vo.pose`` (one of them kernel 4), one from ``vo.step`` itself, one launched
+    before the step and one never linked; idle gaps by their middle."""
+    from tpuslam_torch.utils.profiling import SpanRecord, StepRecord
+
+    step = StepRecord(0, "vo.step", {})
+    for name, parent, (s, e) in (("vo.step", None, (0, 100)), ("vo.pose", 0, (10, 50)), ("pose.msac", 1, (20, 30))):
+        step.spans.append(SpanRecord(name, parent, s))
+        step.spans[-1].end_ns = e
+    step.spans[2].counts["vo.host_syncs"] = 1
+    step.counters["vo.host_syncs"] = 1
+    events = [
+        _Event("cudaLaunchKernel", 12, 13, 1),
+        _Event("cudaLaunchKernel", 22, 23, 2),
+        _Event("cudaMemcpyAsync", 60, 61, 3),
+        _Event("cudaLaunchKernel", -5, -4, 4),
+        _Event("aten::mul", 12, 14, 1),  # an operator whose own id is a launch's: not a launch call
+        _Event("void mul_kernel<float>(float*)", 15, 25, 1, device=True),
+        _Event("void msac_kernel<128>(float const*)", 25, 45, 2, device=True),
+        _Event("Memcpy HtoD", 62, 70, 3, device=True),
+        _Event("before", -3, 2, 4, device=True),
+        _Event("unlinked", 80, 90, 99, device=True),
+        _Event("vo.pose", 10, 50, 0, device=True, annotation=True),  # a GPU annotation row: not a launch
+    ]
+    out = profile_stages.span_table(events, step, on_card=True, bounds={"pose.msac": 2.0})
+    rows = {r["span"]: r for r in out["spans"]}
+    assert [rows[n]["launches"] for n in ("vo.step", "vo.pose", "pose.msac")] == [1, 1, 1]
+    ms = [rows[n]["device_ms"] for n in ("vo.step", "vo.pose", "pose.msac")]
+    assert ms == pytest.approx([8e-6, 10e-6, 20e-6], rel=1e-12)
+    assert rows["pose.msac"]["kernel_ms"] == pytest.approx(20e-6, rel=1e-12) and rows["vo.pose"]["kernel_ms"] == 0
+    assert rows["pose.msac"]["bound_share"] == pytest.approx(2e-3 / 20e-6) and rows["vo.pose"]["bound_share"] is None
+    # device busy [0, 2], [15, 45], [62, 70], [80, 90] in the step's [0, 100]: the gaps [2, 15] (middle 8.5, before
+    # vo.pose opens), [45, 62], [70, 80] and [90, 100] all lie in vo.step alone
+    assert rows["vo.step"]["idle_ms"] == pytest.approx(50e-6, rel=1e-12) and rows["vo.pose"]["idle_ms"] == 0
+    assert rows["pose.msac"]["syncs"] == 1 and out["host_syncs"] == 1
+    assert out["launches"] == 3 and out["unlinked_launches"] == 1
+    assert rows["vo.step"]["self_ms"] == pytest.approx(60e-6, rel=1e-12)
 
 
 def test_profile_slam_on_the_cpu(data_dir):

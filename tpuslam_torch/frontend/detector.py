@@ -55,6 +55,7 @@ from tpuslam_torch.kernels.frontend import (
     fused_frontend_batch,
     fused_frontend_nms_batch,
 )
+from tpuslam_torch.utils import profiling
 
 
 def detector_arrays_numpy(config: DetectorConfig) -> dict[str, np.ndarray]:
@@ -197,8 +198,12 @@ class FeatureDetector:
     def _level_batch(
         self, images: torch.Tensor, max_keypoints: int
     ) -> tuple[KeypointSet, torch.Tensor]:
-        """Single-scale batched detect + compute with an explicit capacity."""
-        return self.compute_from_blurred(*self._detect_level(images, max_keypoints))
+        """Single-scale batched detect + compute with an explicit capacity (spans ``detect.corners`` and
+        ``detect.describe``)."""
+        with profiling.span("detect.corners"):
+            blur, kps = self._detect_level(images, max_keypoints)
+        with profiling.span("detect.describe"):
+            return self.compute_from_blurred(blur, kps)
 
     def _feasible_levels(self, h: int, w: int) -> list[tuple[int, int, int]]:
         """(level, h_l, w_l) for every level large enough to detect on."""
@@ -222,14 +227,17 @@ class FeatureDetector:
         return caps
 
     def _pyramid_batch(self, images: torch.Tensor) -> tuple[KeypointSet, torch.Tensor]:
-        """Detect on every level (each resized from level 0), concatenated along K."""
+        """Detect on every level (each resized from level 0, span ``detect.resize``), concatenated along K."""
         c = self.config
         levels = self._feasible_levels(*images.shape[-2:])
         caps = self._level_capacities(levels)
         kp_parts: list[KeypointSet] = []
         desc_parts: list[torch.Tensor] = []
         for (level, h_l, w_l), cap in zip(levels, caps):
-            img = images if level == 0 else resize_batch_u8(images, h_l, w_l)
+            img = images
+            if level > 0:
+                with profiling.span("detect.resize"):
+                    img = resize_batch_u8(images, h_l, w_l)
             kps, desc = self._level_batch(img, cap)
             # float32 scale, as jnp.float32(scale_factor**level)
             scale = torch.tensor(c.scale_factor**level, dtype=torch.float32, device=images.device)

@@ -37,6 +37,7 @@ from tpuslam_torch.common.geometry import (
 )
 from tpuslam_torch.config.schema import PoseConfig
 from tpuslam_torch.kernels.pose import build_msac_operand, msac_scores
+from tpuslam_torch.utils import profiling
 
 
 class PoseResult(NamedTuple):
@@ -179,6 +180,8 @@ def estimate_relative_pose(
 
     ``pts1``/``pts2``: (B, M, 2) float32; ``valid``: (B, M) bool; ``K``:
     (3, 3).  ``draws``: optional (B, H, S) ranks (see the module docstring).
+    Spans (``utils/profiling.py``): ``pose.hypotheses``, ``pose.msac``,
+    ``pose.lo``, ``pose.cheirality``.
     """
     B, M = valid.shape
     dev = pts1.device
@@ -192,81 +195,85 @@ def estimate_relative_pose(
     x2 = normalize_points(Kf, pts2)
 
     # --- hypothesis sampling: ranks among the valid matches → match indices.
-    valid_rank = torch.cumsum(valid.to(torch.int64), dim=-1) - 1
-    arange_m = torch.arange(M, device=dev).expand(B, M)
-    rank_to_idx = torch.zeros((B, M), dtype=torch.int64, device=dev).scatter_reduce(
-        1, torch.where(valid, valid_rank, M - 1), arange_m, "amax", include_self=True
-    )
-    if draws is None:
-        draws = draw_ranks(n_valid, num_hypotheses, sample_size, generator)
-    H, S = draws.shape[1:]
-    sample_idx = torch.gather(rank_to_idx, 1, draws.to(dev, torch.int64).reshape(B, H * S))
+    with profiling.span("pose.hypotheses"):
+        valid_rank = torch.cumsum(valid.to(torch.int64), dim=-1) - 1
+        arange_m = torch.arange(M, device=dev).expand(B, M)
+        rank_to_idx = torch.zeros((B, M), dtype=torch.int64, device=dev).scatter_reduce(
+            1, torch.where(valid, valid_rank, M - 1), arange_m, "amax", include_self=True
+        )
+        if draws is None:
+            draws = draw_ranks(n_valid, num_hypotheses, sample_size, generator)
+        H, S = draws.shape[1:]
+        sample_idx = torch.gather(rank_to_idx, 1, draws.to(dev, torch.int64).reshape(B, H * S))
 
-    rows_all = _eight_point_rows(x1, x2)  # (B, M, 9)
-    hyp_ok = None
-    if S == 5:
-        from tpuslam_torch.frontend.fivepoint import fivepoint_essential
+        rows_all = _eight_point_rows(x1, x2)  # (B, M, 9)
+        hyp_ok = None
+        if S == 5:
+            from tpuslam_torch.frontend.fivepoint import fivepoint_essential
 
-        idx2 = sample_idx[..., None].expand(B, H * S, 2)
-        s1 = torch.gather(x1, 1, idx2).reshape(B, H, S, 2)
-        s2 = torch.gather(x2, 1, idx2).reshape(B, H, S, 2)
-        E_cand, cand_ok = fivepoint_essential(s1, s2)  # (B, H, 10, 3, 3), (B, H, 10)
-        E_hyp = E_cand.reshape(B, H * 10, 3, 3)
-        hyp_ok = cand_ok.reshape(B, H * 10)
-    else:
-        rows = torch.gather(rows_all, 1, sample_idx[..., None].expand(B, H * S, 9)).reshape(B, H, S, 9)
-        E_hyp = _solve_e_from_rows(rows, project=False, sweeps=3)  # (B, H, 3, 3)
-    n_models = E_hyp.shape[1]
+            idx2 = sample_idx[..., None].expand(B, H * S, 2)
+            s1 = torch.gather(x1, 1, idx2).reshape(B, H, S, 2)
+            s2 = torch.gather(x2, 1, idx2).reshape(B, H, S, 2)
+            E_cand, cand_ok = fivepoint_essential(s1, s2)  # (B, H, 10, 3, 3), (B, H, 10)
+            E_hyp = E_cand.reshape(B, H * 10, 3, 3)
+            hyp_ok = cand_ok.reshape(B, H * 10)
+        else:
+            rows = torch.gather(rows_all, 1, sample_idx[..., None].expand(B, H * S, 9)).reshape(B, H, S, 9)
+            E_hyp = _solve_e_from_rows(rows, project=False, sweeps=3)  # (B, H, 3, 3)
+        n_models = E_hyp.shape[1]
 
     # --- MSAC scores of every hypothesis (kernel 4).
-    focal = 0.5 * (Kf[0, 0] + Kf[1, 1])
-    thr = (inlier_threshold_px / focal) ** 2
-    n_invalid = (~valid).sum(dim=-1, keepdim=True)
-    P_op = build_msac_operand(x1, x2, valid, thr)
-    msac = msac_scores(E_hyp.reshape(B, n_models, 9), P_op) + n_invalid
-    if hyp_ok is not None:  # masked five-point candidates rank last, set after the kernel
-        msac = torch.where(hyp_ok, msac, float(M + 1))
+    with profiling.span("pose.msac"):
+        focal = 0.5 * (Kf[0, 0] + Kf[1, 1])
+        thr = (inlier_threshold_px / focal) ** 2
+        n_invalid = (~valid).sum(dim=-1, keepdim=True)
+        P_op = build_msac_operand(x1, x2, valid, thr)
+        msac = msac_scores(E_hyp.reshape(B, n_models, 9), P_op) + n_invalid
+        if hyp_ok is not None:  # masked five-point candidates rank last, set after the kernel
+            msac = torch.where(hyp_ok, msac, float(M + 1))
 
     # --- annealed LO-RANSAC from the best L hypotheses.
-    L = min(4, n_models)
-    top_h = torch.sort(msac, dim=-1, stable=True).indices[:, :L]
-    E_cur = torch.gather(E_hyp, 1, top_h[..., None, None].expand(B, L, 3, 3))
-    E_best_l = E_cur
-    msac_best_l = torch.gather(msac, 1, top_h)
-    rows_b = rows_all[:, None].expand(B, L, M, 9)
-    for mult in (16.0, 4.0, 1.0):
-        e2, den = sampson_error_sq(E_cur, x1, x2, with_denom=True)  # (B, L, M)
-        w = torch.where((e2 < mult * thr) & valid[:, None], 1.0, 0.0)
-        w = w / torch.sqrt(torch.clamp_min(den, 1e-18))
-        E_new = _solve_e_from_rows(rows_b, w, project=False)
-        e2_new = sampson_error_sq(E_new, x1, x2)
-        msac_new = torch.where(
-            valid[:, None], torch.clamp_max(e2_new / thr, 1.0), 0.0
-        ).sum(dim=-1) + n_invalid
-        better = msac_new < msac_best_l
-        E_best_l = torch.where(better[..., None, None], E_new, E_best_l)
-        msac_best_l = torch.where(better, msac_new, msac_best_l)
-        E_cur = E_new
-    best_l = torch.argmin(msac_best_l, dim=-1)
-    batch = torch.arange(B, device=dev)
-    E_best = _project_essential(E_best_l[batch, best_l])
-    inliers = (sampson_error_sq(E_best[:, None], x1, x2)[:, 0] < thr) & valid
+    with profiling.span("pose.lo"):
+        L = min(4, n_models)
+        top_h = torch.sort(msac, dim=-1, stable=True).indices[:, :L]
+        E_cur = torch.gather(E_hyp, 1, top_h[..., None, None].expand(B, L, 3, 3))
+        E_best_l = E_cur
+        msac_best_l = torch.gather(msac, 1, top_h)
+        rows_b = rows_all[:, None].expand(B, L, M, 9)
+        for mult in (16.0, 4.0, 1.0):
+            e2, den = sampson_error_sq(E_cur, x1, x2, with_denom=True)  # (B, L, M)
+            w = torch.where((e2 < mult * thr) & valid[:, None], 1.0, 0.0)
+            w = w / torch.sqrt(torch.clamp_min(den, 1e-18))
+            E_new = _solve_e_from_rows(rows_b, w, project=False)
+            e2_new = sampson_error_sq(E_new, x1, x2)
+            msac_new = torch.where(
+                valid[:, None], torch.clamp_max(e2_new / thr, 1.0), 0.0
+            ).sum(dim=-1) + n_invalid
+            better = msac_new < msac_best_l
+            E_best_l = torch.where(better[..., None, None], E_new, E_best_l)
+            msac_best_l = torch.where(better, msac_new, msac_best_l)
+            E_cur = E_new
+        best_l = torch.argmin(msac_best_l, dim=-1)
+        batch = torch.arange(B, device=dev)
+        E_best = _project_essential(E_best_l[batch, best_l])
+        inliers = (sampson_error_sq(E_best[:, None], x1, x2)[:, 0] < thr) & valid
 
     # --- [R|t] by cheirality vote on (up to) 256 inliers.
-    Rs, ts = _candidate_poses(E_best)  # (B, 4, 3, 3), (B, 4, 3)
-    vote_n = min(256, M)
-    if vote_n < M:
-        vote_idx = torch.sort(inliers.to(torch.int32), dim=-1, descending=True, stable=True).indices
-        vote_idx = vote_idx[:, :vote_n]
-        xv1 = torch.gather(x1, 1, vote_idx[..., None].expand(B, vote_n, 2))
-        xv2 = torch.gather(x2, 1, vote_idx[..., None].expand(B, vote_n, 2))
-        vmask = torch.gather(inliers, 1, vote_idx)
-    else:
-        xv1, xv2, vmask = x1, x2, inliers
-    votes = cheirality_votes(Rs, ts, xv1, xv2, vmask)
-    best_c = torch.argmax(votes, dim=-1)
-    R = Rs[batch, best_c]
-    t = ts[batch, best_c]
+    with profiling.span("pose.cheirality"):
+        Rs, ts = _candidate_poses(E_best)  # (B, 4, 3, 3), (B, 4, 3)
+        vote_n = min(256, M)
+        if vote_n < M:
+            vote_idx = torch.sort(inliers.to(torch.int32), dim=-1, descending=True, stable=True).indices
+            vote_idx = vote_idx[:, :vote_n]
+            xv1 = torch.gather(x1, 1, vote_idx[..., None].expand(B, vote_n, 2))
+            xv2 = torch.gather(x2, 1, vote_idx[..., None].expand(B, vote_n, 2))
+            vmask = torch.gather(inliers, 1, vote_idx)
+        else:
+            xv1, xv2, vmask = x1, x2, inliers
+        votes = cheirality_votes(Rs, ts, xv1, xv2, vmask)
+        best_c = torch.argmax(votes, dim=-1)
+        R = Rs[batch, best_c]
+        t = ts[batch, best_c]
 
     n_inl = inliers.sum(dim=-1, dtype=torch.int32)
     success = enough & (n_inl >= min_matches)

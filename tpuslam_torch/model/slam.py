@@ -44,6 +44,7 @@ from tpuslam_torch.frontend.pose import (
     triangulate_matched_points,
 )
 from tpuslam_torch.pre.stream import device_prefetch
+from tpuslam_torch.utils import profiling
 
 DrawFn = Callable[[int, torch.Tensor, int, int], torch.Tensor]
 PnpDrawFn = Callable[[int, torch.Tensor], torch.Tensor]
@@ -264,63 +265,70 @@ class SlamPipeline:
         n_seq, B = frames.shape[:2]
         mcfg = self.config.matcher
         pcfg = self.config.pose
-        und = undistort_batch(frames.reshape(n_seq * B, *frames.shape[2:]), self.undistort_idx,
-                              self.undistort_valid)
-        kps, desc = self.detector.detect_and_compute_batch(und)
+        with profiling.span("vo.undistort"):
+            und = undistort_batch(frames.reshape(n_seq * B, *frames.shape[2:]), self.undistort_idx,
+                                  self.undistort_valid)
+        with profiling.span("vo.detect"):
+            kps, desc = self.detector.detect_and_compute_batch(und)
 
         # consecutive pairs of each sequence: (prev, f0), (f0, f1), …, (f_{B-2}, f_{B-1})
         def pairs(prev: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
             cur = cur.reshape(n_seq, B, *cur.shape[1:])
             return torch.cat([prev[:, None], cur[:, :-1]], dim=1).reshape(n_seq * B, *cur.shape[2:])
 
-        kps_q = KeypointSet(*(pairs(torch.stack(p), c) for p, c in zip(zip(*(st.prev_kps for st in states)), kps)))
-        desc_q = pairs(torch.stack([st.prev_desc for st in states]), desc)
-        frame_valid = frame_valid.reshape(n_seq * B)
-        pair_ok = pairs(torch.stack([st.prev_exists for st in states]), frame_valid) & frame_valid
+        with profiling.span("vo.match"):
+            kps_q = KeypointSet(*(pairs(torch.stack(p), c)
+                                  for p, c in zip(zip(*(st.prev_kps for st in states)), kps)))
+            desc_q = pairs(torch.stack([st.prev_desc for st in states]), desc)
+            frame_valid = frame_valid.reshape(n_seq * B)
+            pair_ok = pairs(torch.stack([st.prev_exists for st in states]), frame_valid) & frame_valid
 
-        match = match_descriptors(
-            desc_q, desc, kps_q.valid, kps.valid, kps_q.xy, kps.xy,
-            ratio_threshold=mcfg.ratio_test_threshold,
-            max_jump_radius=mcfg.max_jump_radius,
-            use_ratio_test=mcfg.use_ratio_test,
-            filter_matches=False,
-            use_spatial_penalty=True,
-        )
-        q = torch.clamp_min(match.query_idx, 0)
-        t = torch.clamp_min(match.train_idx, 0)
-        pts1 = torch.gather(kps_q.xy, 1, q[..., None].expand(*q.shape, 2))
-        pts2 = torch.gather(kps.xy, 1, t[..., None].expand(*t.shape, 2))
-        mvalid = match.valid & pair_ok[:, None]
+            match = match_descriptors(
+                desc_q, desc, kps_q.valid, kps.valid, kps_q.xy, kps.xy,
+                ratio_threshold=mcfg.ratio_test_threshold,
+                max_jump_radius=mcfg.max_jump_radius,
+                use_ratio_test=mcfg.use_ratio_test,
+                filter_matches=False,
+                use_spatial_penalty=True,
+            )
+            q = torch.clamp_min(match.query_idx, 0)
+            t = torch.clamp_min(match.train_idx, 0)
+            pts1 = torch.gather(kps_q.xy, 1, q[..., None].expand(*q.shape, 2))
+            pts2 = torch.gather(kps.xy, 1, t[..., None].expand(*t.shape, 2))
+            mvalid = match.valid & pair_ok[:, None]
 
         # In PnP mode the two-view pose only seeds the tracker, so it may run
         # at the smaller SeedNumHypotheses budget.
         n_hyp = pcfg.num_hypotheses
         if self.tracking == "pnp" and pcfg.seed_num_hypotheses:
             n_hyp = min(pcfg.seed_num_hypotheses, pcfg.num_hypotheses)
-        fids = [[st.frame_idx + i for i in range(B)] for st in states]
-        draws = self._draws(fids, mvalid.sum(dim=-1), seeds, n_hyp, draw_fns or [self.draw_fn] * n_seq)
-        res = estimate_relative_pose(
-            pts1, pts2, mvalid, self.K,
-            draws=draws,
-            num_hypotheses=n_hyp,
-            sample_size=pcfg.sample_size,
-            inlier_threshold_px=pcfg.inlier_threshold_px,
-            min_matches=pcfg.min_matches,
-        )
+        with profiling.span("vo.draws"):
+            fids = [[st.frame_idx + i for i in range(B)] for st in states]
+            draws = self._draws(fids, mvalid.sum(dim=-1), seeds, n_hyp, draw_fns or [self.draw_fn] * n_seq)
+        with profiling.span("vo.pose"):
+            res = estimate_relative_pose(
+                pts1, pts2, mvalid, self.K,
+                draws=draws,
+                num_hypotheses=n_hyp,
+                sample_size=pcfg.sample_size,
+                inlier_threshold_px=pcfg.inlier_threshold_px,
+                min_matches=pcfg.min_matches,
+            )
 
-        X_prev = triangulate_matched_points(self.K, res.R, res.t, pts1, pts2)  # (B, M, 3)
-        X_cur = torch.einsum("bij,bmj->bmi", res.R, X_prev) + res.t[:, None, :]
-        z_prev = X_prev[..., 2]
-        z_cur = X_cur[..., 2]
-        mapc = self.config.map
-        point_ok = (
-            res.inliers
-            & mvalid
-            & (z_prev > mapc.min_triangulation_depth)
-            & (z_prev < mapc.max_triangulation_depth)
-            & (z_cur > mapc.min_triangulation_depth)
-            & res.success[:, None]
-        )
+        with profiling.span("vo.triangulate"):
+            X_prev = triangulate_matched_points(self.K, res.R, res.t, pts1, pts2)  # (B, M, 3)
+            X_cur = torch.einsum("bij,bmj->bmi", res.R, X_prev) + res.t[:, None, :]
+            z_prev = X_prev[..., 2]
+            z_cur = X_cur[..., 2]
+            mapc = self.config.map
+            point_ok = (
+                res.inliers
+                & mvalid
+                & (z_prev > mapc.min_triangulation_depth)
+                & (z_prev < mapc.max_triangulation_depth)
+                & (z_cur > mapc.min_triangulation_depth)
+                & res.success[:, None]
+            )
         return kps, desc, match, mvalid, res, X_prev, X_cur, point_ok
 
     def _to_device(self, frames, frame_valid) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
@@ -356,10 +364,19 @@ class SlamPipeline:
     ) -> tuple[list[ChunkResult], list[VoState]]:
         """One VO chunk of each of S independent sequences as one batched step → (results, carries) by
         sequence; sequence s as ``process_chunk`` of its frames, carry and seed would give it, drawing
-        from ``draw_fns[s]`` where given (default the pipeline's ``draw_fn``)."""
-        frames, frame_valid, n_real = self._to_device(frames, frame_valid)
-        two_view = self._two_view_stage(frames, frame_valid, states, seeds, draw_fns)
-        return self._scale_and_chain(states, n_real, *two_view)
+        from ``draw_fns[s]`` where given (default the pipeline's ``draw_fn``).
+
+        While a ``torch.profiler`` session records, the step is a ``vo.step`` span tree in
+        ``utils/profiling.py``'s recorder (``vo.upload``, ``vo.undistort``, ``vo.detect``, ``vo.match``,
+        ``vo.draws``, ``vo.pose``, ``vo.triangulate``, ``vo.chain``) and, on a card, counts its
+        synchronising CUDA calls under ``vo.host_syncs``."""
+        syncs = "vo.host_syncs" if self.device.type == "cuda" else None
+        with profiling.step("vo.step", sync_counter=syncs, S=len(states), B=frames.shape[1]):
+            with profiling.span("vo.upload"):
+                frames, frame_valid, n_real = self._to_device(frames, frame_valid)
+            two_view = self._two_view_stage(frames, frame_valid, states, seeds, draw_fns)
+            with profiling.span("vo.chain"):
+                return self._scale_and_chain(states, n_real, *two_view)
 
     def _scale_and_chain(self, states: list[VoState], n_real: list[int], kps, desc, match, mvalid, res, X_prev,
                          X_cur, point_ok) -> tuple[list[ChunkResult], list[VoState]]:
@@ -397,28 +414,29 @@ class SlamPipeline:
         features = self._features(kps, desc, match, mvalid, points3d, point_ok)
         num_matches = mvalid.sum(dim=-1, dtype=torch.int32)
         results, new_states = [], []
-        for s, (state, n) in enumerate(zip(states, n_real)):
-            rows = slice(s * B, (s + 1) * B)
-            i = max(n - 1, 0)  # the sequence's last real frame
-            last = s * B + i
-            carry_depth = d_cur[s, i] * cumscale[s, i]
-            ok_last = res.success[last]
-            new_states.append(VoState(
-                prev_kps=KeypointSet(*(a[last] for a in kps)),
-                prev_desc=desc[last],
-                prev_exists=state.prev_exists | (n > 0),
-                pose=poses[s, i],
-                frame_idx=state.frame_idx + n,
-                prev_depth=torch.where(ok_last, carry_depth, state.prev_depth),
-                prev_depth_valid=torch.where(ok_last, carry_depth > 0, state.prev_depth_valid),
-            ))
-            results.append(ChunkResult(
-                poses=poses[s],
-                num_matches=num_matches[rows],
-                num_inliers=res.num_inliers[rows],
-                pose_ok=res.success[rows],
-                **{k: v[rows] for k, v in features.items()},
-            ))
+        with profiling.span("vo.split"):
+            for s, (state, n) in enumerate(zip(states, n_real)):
+                rows = slice(s * B, (s + 1) * B)
+                i = max(n - 1, 0)  # the sequence's last real frame
+                last = s * B + i
+                carry_depth = d_cur[s, i] * cumscale[s, i]
+                ok_last = res.success[last]
+                new_states.append(VoState(
+                    prev_kps=KeypointSet(*(a[last] for a in kps)),
+                    prev_desc=desc[last],
+                    prev_exists=state.prev_exists | (n > 0),
+                    pose=poses[s, i],
+                    frame_idx=state.frame_idx + n,
+                    prev_depth=torch.where(ok_last, carry_depth, state.prev_depth),
+                    prev_depth_valid=torch.where(ok_last, carry_depth > 0, state.prev_depth_valid),
+                ))
+                results.append(ChunkResult(
+                    poses=poses[s],
+                    num_matches=num_matches[rows],
+                    num_inliers=res.num_inliers[rows],
+                    pose_ok=res.success[rows],
+                    **{k: v[rows] for k, v in features.items()},
+                ))
         return results, new_states
 
     def process_chunk_pnp(

@@ -1,57 +1,59 @@
-"""Stage times of one VO chunk, each stage timed in place: ``python -m tpuslam_torch.tools.profile_stages``.
+"""Where one VO step's time goes, read from the step's own spans: ``python -m tpuslam_torch.tools.profile_stages``.
 
-Port of ``tools/profile_stages.py``::
+The port's counterpart of ``tools/profile_stages.py``::
 
-    python -m tpuslam_torch.tools.profile_stages [--pyramid] [--device cuda]
+    python -m tpuslam_torch.tools.profile_stages [--pyramid [--levels N]] [--sequences S] [--device cuda]
+                                                 [--span-cost N]
 
-runs the functions ``SlamPipeline.process_chunk`` composes, one at a time
-in its order, on a chunk of 16 KITTI fixture frames (ping-pong tiled), each timed by ``utils/profiling.py::synced_ms`` — the median
-over ``reps`` (10) calls after a first one, with the card synchronised on
-either side (with ``reps`` 0, the first call's time) — so their
-sum is near the synchronised chunk, timed last as a whole.  Stages:
-undistort, kernel 1 (blur + FAST), NMS and top-k, kernels 2-3 with the
-orientation and the bits, matching, the draws, ``estimate_relative_pose``
-(kernel 4 inside), triangulation, and scale and chaining; under
-``--pyramid`` (``configs/multiscale``) the detector's stages are the
-pyramid's resize, kernel 5 (kernel 1 on a level it does not take), top-k
-and kernels 2-3 over every level.
+runs ``SlamPipeline.process_chunks`` on S sequences (default 1) of a chunk
+of 16 KITTI fixture frames (ping-pong tiled; sequence s seeded s), once to
+warm up and once under ``utils/profiling.py::device_trace``, and reduces
+that trace by the spans the step records itself (the recorder's
+``vo.step`` tree: nothing is run again or synchronised apart).  For each
+span name, in the order the step first opens it: its calls, host ms (its
+length, children included) and self ms (less its children); and, each
+booked to the innermost span open where it happened, the device launches
+(kernels, copies, sets) whose launch call ran inside the span with their
+device ms — the profiler's link from a launch call to what it ran, their
+shared correlation id —, the device's idle ms (each gap of the step's
+device activity by its middle) and, on the card, the host syncs.  The
+spans that run the five kernels add their bound, the least time an H100
+could take for those kernels at the step's shapes (``kernels/bounds.py``:
+``detect.corners`` kernel 1 or 5, ``detect.describe`` kernels 2 and 3
+with every keypoint's bin in range and every bin used, ``pose.msac``
+kernel 4), the kernels' own device ms and the bound's share of it.  ``--pyramid`` takes ``configs/multiscale`` (4 levels) with
+kernel 5, ``--levels`` another number of levels (8 is ORB-SLAM2's KITTI
+pyramid).  On the CPU every time is the CPU's and the device fields are
+None.
 
-Each stage's bound is the least time an H100 could take for it
-(``kernels/bounds.py``: 3.35 TB/s, and the peak rate of its operations'
-type): a kernel stage from its kernel's ``*_work``; any other stage counts
-only the bytes of its inputs and outputs, so its bound is a lower bound.
-``torch.profiler`` gives the device kernels of the whole chunk and its
-device-busy share.  On the CPU every time is the CPU's and the device
-fields are None.
+``--span-cost N`` measures what the spans cost instead: N pairs of traced
+steps (under ``torch.profiler``, each ended by reading its poses to the
+host) with the spans and with ``profiling.span`` and ``profiling.step``
+stubbed out, in turns, and the ns a span takes with no profiler running
+and inside a recorded step.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from tpuslam_torch.kernels.bounds import PEAK_F32_OPS, Work
-from tpuslam_torch.utils.profiling import device_profile, synced_call, synced_ms
+from tpuslam_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parents[2]
 BATCH = 16
-REPS = 10
-
-
-def tensor_bytes(*objs) -> int:
-    """Bytes of every tensor in ``objs`` (tuples, lists and named tuples walked)."""
-    total = 0
-    for o in objs:
-        if isinstance(o, torch.Tensor):
-            total += o.numel() * o.element_size()
-        elif isinstance(o, (tuple, list)):
-            total += tensor_bytes(*o)
-    return total
+RUNTIME = "cu"  # the name prefix of a CUDA runtime or driver call on the host (cudaLaunchKernel, cuLaunchKernel)
+# the CUDA functions of the five kernels (kernel 3 launches two), as the profiler names their launches
+KERNEL_FUNCTIONS = ("frontend_kernel", "frontend_nms_kernel", "extract_kernel", "bin_sort_kernel", "own_bin_kernel",
+                    "msac_kernel")
 
 
 def fixture_chunk(batch: int, directory: Path | None = None) -> np.ndarray:
@@ -65,167 +67,214 @@ def fixture_chunk(batch: int, directory: Path | None = None) -> np.ndarray:
     return base[[min(i % period, period - i % period) for i in range(batch)]]
 
 
-class _Stages:
-    """Runs and times stages in order; each row keeps its ms and its bound."""
-
-    def __init__(self, reps: int):
-        self.reps = reps
-        self.rows: list[dict] = []
-
-    def __call__(self, name: str, fn, inputs=(), work: Work | None = None):
-        out, ms = synced_call(fn)  # the call whose output the next stage takes
-        if self.reps:
-            ms = synced_ms(fn, reps=self.reps, warmup=0)
-        if work is None:  # a stage with no kernel: its bytes alone
-            work = Work(bytes=tensor_bytes(inputs, out), ops=0, peak=PEAK_F32_OPS)
-        bound_us = work.bound_us()
-        self.rows.append({"stage": name, "ms": ms, "bound_us": bound_us, "bound_by": work.bound_by(),
-                          "bound_share": bound_us / 1e3 / ms if ms > 0 else None})
-        return out
-
-
-def _detector_stages(stage: _Stages, pipeline, und: torch.Tensor):
-    """The detector's stages on (B, H, W) undistorted frames → (KeypointSet, descriptors)."""
-    from tpuslam_torch.frontend.brief import quantize_angles
-    from tpuslam_torch.frontend.detector import resize_batch_u8
-    from tpuslam_torch.frontend.fast import KeypointSet, select_from_key, select_keypoints
+def kernel_bounds(pipeline, frames: int, height: int, width: int) -> dict[str, float]:
+    """µs: the bound of the kernels each kernel span runs in one step over ``frames`` frames."""
     from tpuslam_torch.kernels.brief import extract_patches_work, own_bin_dots_work
-    from tpuslam_torch.kernels.frontend import (
-        fused_frontend_batch, fused_frontend_nms_batch, frontend_nms_work, frontend_work)
+    from tpuslam_torch.kernels.frontend import frontend_nms_work, frontend_work
+    from tpuslam_torch.kernels.pose import msac_work
 
     det = pipeline.detector
     c = det.config
-    B, H, W = und.shape
-    args = dict(threshold=c.intensity_threshold, contiguous=c.contiguous_pixels_threshold, taps=det.blur_kernel)
-    window = c.suppression_window_size
-    if c.num_levels <= 1:
-        levels, caps, imgs = [(0, H, W)], [c.max_keypoints], [und]
-    else:
-        levels = det._feasible_levels(H, W)
-        caps = det._level_capacities(levels)
-        imgs = stage(f"resize ({len(levels) - 1} levels)",
-                     lambda: [und] + [resize_batch_u8(und, h, w) for _, h, w in levels[1:]], inputs=und)
-    fused = [det._fused_nms_ok(h, w, cap) for (_, h, w), cap in zip(levels, caps)]
-    work = [frontend_nms_work(B, h, w) if f else frontend_work(B, h, w) for (_, h, w), f in zip(levels, fused)]
-    name = "kernel 5" if all(fused) else ("kernel 1" if not any(fused) else "kernels 5 and 1")
-    planes = stage(f"{name} ({len(levels)} level{'s' if len(levels) > 1 else ''})",
-                   lambda: [fused_frontend_nms_batch(im, window=window, **args) if f else fused_frontend_batch(im, **args)
-                            for im, f in zip(imgs, fused)],
-                   work=Work(sum(w.bytes for w in work), sum(w.ops for w in work), PEAK_F32_OPS))
-
-    def select():
-        return [select_from_key(p[1], window=window, max_keypoints=cap) if f else
-                select_keypoints(p[1], p[2], nms=c.non_max_suppression, window=window, max_keypoints=cap)
-                for p, f, cap in zip(planes, fused, caps)]
-
-    kps_levels = stage("top-k" if all(fused) else "NMS + top-k", select, inputs=[p[1:] for p in planes])
-
-    def compute():
-        return [det.compute_from_blurred(p[0], k) for p, k in zip(planes, kps_levels)]
-
-    work = None  # exact BRIEF (bins 0) runs no kernel: its bytes alone
-    if c.brief_quantized_bins > 0:
-        work = Work(0, 0, PEAK_F32_OPS)
-        for (_, h, w), (kp, _) in zip(levels, compute()):
-            bins = quantize_angles(kp.angle, c.brief_quantized_bins)
-            wk = [extract_patches_work(B, h, w, kp.xy.shape[1], c.patch_size),
-                  own_bin_dots_work(bins, det.bin_weights)]
-            work = Work(work.bytes + sum(x.bytes for x in wk), work.ops + sum(x.ops for x in wk), wk[1].peak)
-    computed = stage("kernels 2-3, orientation, bits", compute, inputs=(planes, kps_levels), work=work)
-    parts = [(kp._replace(xy=kp.xy * torch.tensor(c.scale_factor ** lv, dtype=torch.float32, device=kp.xy.device)),
-              d) for (lv, _, _), (kp, d) in zip(levels, computed)]
-    kps = KeypointSet(*(torch.cat(f, dim=1) for f in zip(*(kp for kp, _ in parts))))
-    return kps, torch.cat([d for _, d in parts], dim=1)
+    levels = det._feasible_levels(height, width) if c.num_levels > 1 else [(0, height, width)]
+    caps = det._level_capacities(levels) if c.num_levels > 1 else [c.max_keypoints]
+    out = {"detect.corners": 0.0, "pose.msac": msac_work(frames, pipeline.config.pose.num_hypotheses,
+                                                         c.max_keypoints).bound_us()}
+    for (_, h, w), k in zip(levels, caps):
+        work = frontend_nms_work if det._fused_nms_ok(h, w, k) else frontend_work
+        out["detect.corners"] += work(frames, h, w).bound_us()
+        if c.brief_quantized_bins > 0:  # exact BRIEF (bins 0) runs neither kernel 2 nor 3
+            bins = torch.arange(frames * k).reshape(frames, k) % c.brief_quantized_bins
+            out["detect.describe"] = out.get("detect.describe", 0.0) + (
+                extract_patches_work(frames, h, w, k, c.patch_size).bound_us()
+                + own_bin_dots_work(bins, det.bin_weights).bound_us())
+    return out
 
 
-def profile_stages(pipeline, frames: torch.Tensor, reps: int = 10, seed: int = 0) -> dict:
-    """Stage table of one chunk of (B, H, W) uint8 ``frames`` on the pipeline's device (VO mode)."""
-    from tpuslam_torch.common.camera import undistort_batch
-    from tpuslam_torch.frontend.fast import KeypointSet
-    from tpuslam_torch.frontend.matcher import match_descriptors
-    from tpuslam_torch.frontend.pose import estimate_relative_pose, triangulate_matched_points
-    from tpuslam_torch.kernels.pose import msac_work
+def _innermost(spans: list, t: np.ndarray) -> np.ndarray:
+    """Index of the innermost of ``spans`` (opened in order, nested) open at each time of ``t``; -1
+    where none is."""
+    starts = np.array([s.start_ns for s in spans], dtype=np.int64)
+    ends = np.array([s.end_ns for s in spans], dtype=np.int64)
+    inside = (starts[None, :] <= t[:, None]) & (t[:, None] < ends[None, :])
+    last = len(spans) - 1 - np.argmax(inside[:, ::-1], axis=1)
+    return np.where(inside.any(axis=1), last, -1)
 
+
+def span_table(events, step, on_card: bool, bounds: dict[str, float] | None = None) -> dict:
+    """The step's spans with what each holds, from the profiler's events (see the module docstring)."""
+    spans = step.spans
+    n = len(spans)
+    child_ns = [0] * n
+    depth = [0] * n
+    for i, s in enumerate(spans):
+        if s.parent is not None:
+            child_ns[s.parent] += s.ns
+            depth[i] = depth[s.parent] + 1
+    launches = np.zeros(n, dtype=np.int64)
+    device_ns = np.zeros(n, dtype=np.int64)
+    kernel_ns = np.zeros(n, dtype=np.int64)
+    idle_ns = np.zeros(n, dtype=np.int64)
+    unlinked = 0
+    lo, hi = spans[0].start_ns, spans[0].end_ns
+    if on_card:
+        cuda = torch.autograd.DeviceType.CUDA
+        launch_at, rows = {}, []
+        for e in events:
+            if e.device_type() == cuda:
+                if not e.is_user_annotation():
+                    rows.append((e.start_ns(), e.start_ns() + e.duration_ns(), e.correlation_id(),
+                                 any(k in e.name() for k in KERNEL_FUNCTIONS)))
+            elif e.name().startswith(RUNTIME):
+                launch_at[e.correlation_id()] = e.start_ns()
+        linked = np.array([r[2] in launch_at for r in rows], dtype=bool)
+        at = np.array([launch_at.get(r[2], 0) for r in rows], dtype=np.int64)
+        unlinked = int((~linked).sum())
+        mine = linked & (at >= lo) & (at < hi)
+        owner = _innermost(spans, at[mine])
+        booked = owner >= 0
+        length = np.array([r[1] - r[0] for r in rows], dtype=np.int64)[mine][booked]
+        ours = np.array([r[3] for r in rows], dtype=bool)[mine][booked]
+        np.add.at(launches, owner[booked], 1)
+        np.add.at(device_ns, owner[booked], length)
+        np.add.at(kernel_ns, owner[booked], np.where(ours, length, 0))
+        busy = sorted((max(r[0], lo), min(r[1], hi)) for r in rows if r[0] < hi and r[1] > lo)
+        gaps, cursor = [], lo
+        for s, e in busy:
+            if s > cursor:
+                gaps.append((cursor, s))
+            cursor = max(cursor, e)
+        if cursor < hi:
+            gaps.append((cursor, hi))
+        if gaps:
+            mids = np.array([(s + e) // 2 for s, e in gaps], dtype=np.int64)
+            owner = _innermost(spans, mids)
+            np.add.at(idle_ns, owner[owner >= 0], np.array([e - s for s, e in gaps], dtype=np.int64)[owner >= 0])
+    rows_out: dict[str, dict] = {}
+    for i, s in enumerate(spans):
+        r = rows_out.setdefault(s.name, {"span": s.name, "depth": depth[i], "calls": 0, "host_ms": 0.0,
+                                         "self_ms": 0.0, "launches": 0, "device_ms": 0.0, "kernel_ms": 0.0,
+                                         "idle_ms": 0.0, "syncs": 0})
+        r["calls"] += 1
+        r["host_ms"] += s.ns / 1e6
+        r["self_ms"] += (s.ns - child_ns[i]) / 1e6
+        r["launches"] += int(launches[i])
+        r["device_ms"] += device_ns[i] / 1e6
+        r["kernel_ms"] += kernel_ns[i] / 1e6
+        r["idle_ms"] += idle_ns[i] / 1e6
+        r["syncs"] += s.counts.get("vo.host_syncs", 0)
+    for r in rows_out.values():
+        if not on_card:
+            r.update(launches=None, device_ms=None, kernel_ms=None, idle_ms=None, syncs=None)
+        bound = (bounds or {}).get(r["span"])
+        r["bound_us"] = bound
+        r["bound_share"] = bound / 1e3 / r["kernel_ms"] if bound and r["kernel_ms"] else None
+    return {"spans": list(rows_out.values()), "step_ms": spans[0].ns / 1e6,
+            "launches": int(launches.sum()) if on_card else None,
+            "device_ms": device_ns.sum() / 1e6 if on_card else None,
+            "idle_ms": idle_ns.sum() / 1e6 if on_card else None,
+            "host_syncs": step.counters.get("vo.host_syncs"), "unlinked_launches": unlinked if on_card else None}
+
+
+def profile_stages(pipeline, frames: torch.Tensor) -> dict:
+    """The span table of one ``process_chunks`` step of (S, B, H, W) uint8 ``frames`` on the pipeline's
+    device (VO mode), after one warm-up step."""
+    S, B, H, W = frames.shape
     frames = frames.to(pipeline.device)
-    B = frames.shape[0]
-    mcfg, pcfg, mapc = pipeline.config.matcher, pipeline.config.pose, pipeline.config.map
-    state = pipeline.initial_state()
-    valid = torch.ones(B, dtype=torch.bool)  # a host mask, as `run()` passes it
-    stage = _Stages(reps)
-    und = stage("undistort", lambda: undistort_batch(frames, pipeline.undistort_idx, pipeline.undistort_valid),
-                inputs=(frames, pipeline.undistort_idx, pipeline.undistort_valid))
-    kps, desc = _detector_stages(stage, pipeline, und)
-
-    # consecutive pairs within the chunk; the first frame pairs with itself (no previous chunk)
-    kps_q = KeypointSet(*(torch.cat([f[:1], f[:-1]]) for f in kps))
-    desc_q = torch.cat([desc[:1], desc[:-1]])
-    match = stage("matching", lambda: match_descriptors(
-        desc_q, desc, kps_q.valid, kps.valid, kps_q.xy, kps.xy, ratio_threshold=mcfg.ratio_test_threshold,
-        max_jump_radius=mcfg.max_jump_radius, use_ratio_test=mcfg.use_ratio_test, filter_matches=False,
-        use_spatial_penalty=True), inputs=(desc_q, desc, kps.valid, kps.xy))
-    q = torch.clamp_min(match.query_idx, 0)
-    t = torch.clamp_min(match.train_idx, 0)
-    pts1 = torch.gather(kps_q.xy, 1, q[..., None].expand(*q.shape, 2))
-    pts2 = torch.gather(kps.xy, 1, t[..., None].expand(*t.shape, 2))
-    mvalid = match.valid
-    H = pcfg.num_hypotheses
-    n_valid = mvalid.sum(dim=-1)
-    draws = stage("draws (a generator a frame)",
-                  lambda: pipeline._draws([list(range(B))], n_valid, [seed], H, [pipeline.draw_fn]),
-                  inputs=n_valid)
-    M = mvalid.shape[1]
-    k4 = msac_work(B, H, M)
-    res = stage("estimate_relative_pose", lambda: estimate_relative_pose(
-        pts1, pts2, mvalid, pipeline.K, draws=draws, num_hypotheses=H, sample_size=pcfg.sample_size,
-        inlier_threshold_px=pcfg.inlier_threshold_px, min_matches=pcfg.min_matches),
-        work=Work(tensor_bytes(pts1, pts2, mvalid, draws) + B * (9 + 3 + M + 2) * 4, k4.ops, k4.peak))
-
-    def triangulate():
-        X_prev = triangulate_matched_points(pipeline.K, res.R, res.t, pts1, pts2)
-        X_cur = torch.einsum("bij,bmj->bmi", res.R, X_prev) + res.t[:, None, :]
-        point_ok = (res.inliers & mvalid & (X_prev[..., 2] > mapc.min_triangulation_depth)
-                    & (X_prev[..., 2] < mapc.max_triangulation_depth)
-                    & (X_cur[..., 2] > mapc.min_triangulation_depth) & res.success[:, None])
-        return X_prev, X_cur, point_ok
-
-    X_prev, X_cur, point_ok = stage("triangulation", triangulate, inputs=(res.R, res.t, pts1, pts2))
-    stage("scale and chaining", lambda: pipeline._scale_and_chain(
-        [state], [B], kps, desc, match, mvalid, res, X_prev, X_cur, point_ok), inputs=(X_prev, X_cur, point_ok))
-
-    def chunk():
-        return pipeline.process_chunk(frames, valid, state, seed)
-
-    chunk_ms = synced_ms(chunk, reps=max(reps, 1), warmup=min(reps, 1))
+    valid = torch.ones((S, B), dtype=torch.bool)  # a host mask, as the callers pass it
+    states = [pipeline.initial_state() for _ in range(S)]
+    seeds = list(range(S))
+    pipeline.process_chunks(frames, valid, states, seeds)
+    with tempfile.TemporaryDirectory(prefix="profile_stages_") as tmp:
+        with profiling.device_trace(tmp) as prof:
+            pipeline.process_chunks(frames, valid, states, seeds)
+        events = prof.profiler.kineto_results.events()
+    step = profiling.RECORDER.steps[-1]
+    if step.name != "vo.step":
+        raise RuntimeError(f"the recorder's last step is {step.name!r}, not the VO step")
     on_card = pipeline.device.type == "cuda"
-    prof = device_profile(chunk) if on_card else {"device_kernels": None, "device_ms": None, "busy_share": None}
-    return {
-        "device": str(pipeline.device),
-        "batch": B,
-        "frame_shape": list(frames.shape[1:]),
-        "levels": pipeline.config.detector.num_levels,
-        "stages": stage.rows,
-        "stages_sum_ms": sum(r["ms"] for r in stage.rows),
-        "chunk_ms": chunk_ms,
-        **prof,
-    }
+    table = span_table(events, step, on_card, kernel_bounds(pipeline, S * B, H, W))
+    return {"device": str(pipeline.device), "sequences": S, "batch": B, "frame_shape": [H, W],
+            "levels": pipeline.config.detector.num_levels, "step_id": step.step_id, **table}
+
+
+def span_cost(pipeline, frames: torch.Tensor, pairs: int, reps: int = 100_000) -> dict:
+    """Host ms of traced steps of (S, B, H, W) ``frames`` with their spans and without them, in turns
+    (on, off, off, on, ...) after a warm-up step, and ns a span costs with no profiler and inside a
+    recorded step (mean of ``reps``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    S, B = frames.shape[:2]
+    frames = frames.to(pipeline.device)
+    valid = torch.ones((S, B), dtype=torch.bool)
+    states = [pipeline.initial_state() for _ in range(S)]
+    seeds = list(range(S))
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if pipeline.device.type == "cuda" else [])
+
+    def traced(spans: bool) -> float:
+        saved = profiling.span, profiling.step
+        if not spans:
+            profiling.span = profiling.step = lambda *args, **kwargs: profiling._OFF
+        try:
+            with profile(activities=activities):
+                t0 = time.perf_counter()
+                results, _ = pipeline.process_chunks(frames, valid, states, seeds)
+                torch.stack([r.poses for r in results]).cpu()
+                return 1e3 * (time.perf_counter() - t0)
+        finally:
+            profiling.span, profiling.step = saved
+
+    pipeline.process_chunks(frames, valid, states, seeds)
+    on, off = [], []
+    for i in range(pairs):
+        for spans in ((True, False) if i % 2 == 0 else (False, True)):
+            (on if spans else off).append(traced(spans))
+
+    def ns_a_span(rec: profiling.StageTimer) -> float:
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            with rec.span("vo.cost"):
+                pass
+        return (time.perf_counter_ns() - t0) / reps
+
+    spans_a_step = len(profiling.RECORDER.steps[-1].spans)
+    off_ns = ns_a_span(profiling.RECORDER)
+    rec = profiling.StageTimer()
+    with profile(activities=activities), rec.step("vo.cost"):
+        on_ns = ns_a_span(rec)
+    return {"traced_ms_spans_on": on, "traced_ms_spans_off": off, "median_on_ms": float(np.median(on)),
+            "median_off_ms": float(np.median(off)), "span_off_ns": off_ns, "span_on_ns": on_ns,
+            "spans_a_step": spans_a_step, "off_us_a_step": off_ns * spans_a_step / 1e3,
+            "on_us_a_step": on_ns * spans_a_step / 1e3}
 
 
 def format_table(report: dict) -> str:
-    lines = [f"{'stage':34s} {'ms/chunk':>10s} {'bound µs':>10s}  by          share"]
-    for r in report["stages"]:
-        share = "" if r["bound_share"] is None else f"{100 * r['bound_share']:.3f}%"
-        lines.append(f"{r['stage']:34s} {r['ms']:10.3f} {r['bound_us']:10.2f}  {r['bound_by']:11s} {share}")
-    busy = report["busy_share"]
-    lines.append(f"{'sum of stages':34s} {report['stages_sum_ms']:10.3f}")
-    lines.append(f"{'whole chunk (process_chunk)':34s} {report['chunk_ms']:10.3f}   device kernels "
-                 f"{report['device_kernels']}, busy {'not measured' if busy is None else f'{100 * busy:.1f}%'}")
+    def num(v, fmt):
+        width = int("".join(ch for ch in fmt.split(".")[0] if ch.isdigit()) or 0)
+        return "n/m".rjust(width) if v is None else format(v, fmt)
+
+    lines = [f"{'span':24s} {'calls':>5s} {'host ms':>9s} {'self ms':>9s} {'launches':>8s} {'device ms':>9s} "
+             f"{'kernel ms':>9s} {'idle ms':>8s} {'syncs':>5s} {'bound µs':>9s} {'share':>7s}"]
+    for r in report["spans"]:
+        share = "" if r["bound_share"] is None else f"{100 * r['bound_share']:.2f}%"
+        lines.append(f"{'  ' * r['depth'] + r['span']:24s} {r['calls']:5d} {r['host_ms']:9.3f} {r['self_ms']:9.3f} "
+                     f"{num(r['launches'], '8d')} {num(r['device_ms'], '9.3f')} {num(r['kernel_ms'], '9.3f')} "
+                     f"{num(r['idle_ms'], '8.3f')} "
+                     f"{num(r['syncs'], '5d')} {num(r['bound_us'], '9.2f')} {share:>7s}")
+    lines.append(f"step {report['step_id']}: {report['sequences']} x {report['batch']} frames on {report['device']}, "
+                 f"{report['step_ms']:.3f} ms host, launches {report['launches']}, device ms "
+                 f"{num(report['device_ms'], '.3f')}, idle ms {num(report['idle_ms'], '.3f')}, host syncs "
+                 f"{report['host_syncs']}, launches not linked to a call {report['unlinked_launches']} "
+                 "(n/m: not measured)")
     return "\n".join(lines)
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--pyramid", action="store_true", help="configs/multiscale with kernel 5 (nms_fused)")
+    parser.add_argument("--levels", type=int, help="pyramid levels in place of the configuration's")
+    parser.add_argument("--sequences", type=int, default=1, help="sequences in the step (default 1)")
     parser.add_argument("--device", default="cuda", help="the card (default) or cpu")
+    parser.add_argument("--span-cost", type=int, metavar="N", help="time N pairs of traced steps, spans on and off")
     args = parser.parse_args(argv)
     if args.device != "cpu" and not torch.cuda.is_available():
         parser.error("no CUDA device: the profile runs on the card (--device cpu to run it on the CPU)")
@@ -234,10 +283,16 @@ def main(argv: list[str] | None = None) -> int:
     from tpuslam_torch.model.slam import SlamPipeline
 
     cfg_dir = REPO / "configs" / ("multiscale" if args.pyramid else "")
-    pipeline = SlamPipeline(Camera.from_yaml(cfg_dir / "camera.yml"),
-                            SlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH), device=args.device,
+    config = SlamConfig.from_yaml_dir(cfg_dir, batch_size=BATCH)
+    if args.levels:
+        config = dataclasses.replace(config, detector=dataclasses.replace(config.detector, num_levels=args.levels))
+    pipeline = SlamPipeline(Camera.from_yaml(cfg_dir / "camera.yml"), config, device=args.device,
                             nms_fused=args.pyramid)
-    report = profile_stages(pipeline, torch.from_numpy(fixture_chunk(BATCH)), reps=REPS)
+    chunk = torch.from_numpy(fixture_chunk(BATCH))[None].repeat(args.sequences, 1, 1, 1)
+    if args.span_cost:
+        print(json.dumps(span_cost(pipeline, chunk, args.span_cost)))
+        return 0
+    report = profile_stages(pipeline, chunk)
     print(format_table(report))
     print(json.dumps(report))
     return 0
