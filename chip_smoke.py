@@ -17,14 +17,21 @@ Phases, each fatal on failure (no CPU fallback, no caught phase):
    host queues the call), each kernel's bound (``*_work`` beside its
    wrapper, ``tpuslam_torch/kernels/bounds.py``) and, as yardsticks the
    port never calls, cuBLAS's int8 product over all bins for kernel 3 and
-   its float32 ``torch.bmm(E, P)`` for kernel 4;
+   its float32 ``torch.bmm(E, P)`` for kernel 4; kernel 6 (the Jacobi
+   nullvector) at the benchmark cells' five shapes, the main path's four
+   and the wide form's (PnP at 2,000 points) on Gaussian rows: its
+   twin's bits, the same bits twice, its device
+   time, its twin's and ``torch.linalg.svd``'s (a yardstick the port never
+   calls), and its bound;
 4. frontend — ``FeatureDetector`` on 2 frames on the card and on the CPU,
    with ``configs/`` and with ``configs/multiscale`` (fused NMS): keypoints
    and descriptors identical;
 5. main path — VO with ``configs/`` at batch 16 over 96 frames (the fixtures
    ping-pong tiled, as ``bench.py`` does), one warm-up pass, then a timed
    pass with the kernels' launch counters zeroed just before it: kernels
-   1-4 launched (6 each), kernel 5 not; ``pose_ok`` on >= 90% of frames
+   1-4 launched (6 each), kernel 5 not, kernel 6 36 times (6 a chunk: the
+   hypotheses, three LO refits, cheirality, triangulation; the same on the
+   pyramid path, and at least that in ``[pnp]``); ``pose_ok`` on >= 90% of frames
    1..95, and the inter-frame motion dominantly along +-z;
 6. pyramid path — the same with ``configs/multiscale`` (4 levels, full
    width) and ``nms_fused=True``: exactly 24 launches of kernel 5 (4 levels
@@ -675,6 +682,59 @@ def check_ragged_kernel5(images: torch.Tensor, args: dict) -> None:
         f"on a lattice of equal corners and on zeros")
 
 
+# Kernel 6's calls in one step of the benchmark's cells (32 sequences x 16 frames, 1024 keypoints and
+# hypotheses): the 8-point hypotheses, each LO refit, cheirality, triangulation; DLT-PnP's refit; the
+# main path's four (one chunk of BATCH frames); the wide form, DLT-PnP's refit at 2,000 points.
+JACOBI_SHAPES = {"hypotheses": ((512, 1024, 8, 9), 3), "lo": ((512, 4, 1024, 9), 5),
+                 "cheirality": ((512, 4, 256, 4, 4), 4), "triangulate": ((512, 1024, 4, 4), 8),
+                 "pnp_refit": ((64, 2048, 12), 8),
+                 "main_hypotheses": ((BATCH, 1024, 8, 9), 3), "main_lo": ((BATCH, 4, 1024, 9), 5),
+                 "main_cheirality": ((BATCH, 4, 256, 4, 4), 4), "main_triangulate": ((BATCH, 1024, 4, 4), 8),
+                 "pnp_refit_wide": ((8, 4000, 12), 8)}
+# its calls a chunk on the main and pyramid paths, by shape
+JACOBI_MAIN_CALLS = {"main_hypotheses": 1, "main_lo": 3, "main_cheirality": 1, "main_triangulate": 1}
+JACOBI_PER_CHUNK = sum(JACOBI_MAIN_CALLS.values())
+
+
+def phase_jacobi() -> dict:
+    """Kernel 6 against its twin at ``JACOBI_SHAPES`` on Gaussian rows, with device ms and bounds; its
+    record's ``ms`` is a launch's mean over the main path's calls of a chunk."""
+    from tpuslam_torch.common.geometry import nullvec_jacobi_twin
+    from tpuslam_torch.kernels import jacobi as kj
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rec = {"name": "jacobi_nullvec", "source": "tpuslam_torch/csrc/jacobi.cu",
+           "replaces": "none (tpuslam/common/geometry.py nullvec_jacobi, left to XLA)", "shapes": {}}
+    for what, (shape, sweeps) in JACOBI_SHAPES.items():
+        A = torch.randn(shape, device="cuda", generator=gen)
+        m, n = shape[-2:]
+        got = kj.jacobi_nullvec(A, sweeps)
+        if not torch.equal(got, kj.jacobi_nullvec(A, sweeps)):
+            raise AssertionError(f"jacobi_nullvec {shape}: two runs on the same inputs give different bits")
+        want = nullvec_jacobi_twin(A, sweeps)
+        differ = int((got != want).any(dim=-1).sum())
+        if differ:
+            raise AssertionError(f"jacobi_nullvec {shape}: {differ} problems differ from the twin's bits")
+        dot = float((got * want).sum(dim=-1).abs().min())
+        ms = time_ms(lambda: kj.jacobi_nullvec(A, sweeps))
+        plain = time_ms(lambda: nullvec_jacobi_twin(A, sweeps), reps=5)
+        svd = time_ms(lambda: torch.linalg.svd(A, full_matrices=m < n), reps=5)
+        work = kj.jacobi_work(A.numel() // (m * n), m, n, sweeps)
+        rec["shapes"][what] = {"shape": shape, "sweeps": sweeps, "lanes": kj.team_lanes(m, n) or "wide",
+                               "min_abs_dot": dot,
+                               "ms": ms, "plain_ms": plain, "library_ms_svd": svd, "bound_us": work.bound_us(),
+                               "bound_by": work.bound_by(), "bound_share": work.bound_us() / (ms * 1e3),
+                               "bytes": work.bytes, "ops": work.ops}
+        log(f"[kernels] jacobi_nullvec {what} {shape} x{sweeps} sweeps ({kj.team_lanes(m, n) or 'wide form, 512'} "
+            f"lanes a problem): "
+            f"the twin's bits (min |v . v_twin| {dot:.8f}), the same bits twice; kernel {ms:.4f} ms, "
+            f"twin {plain:.4f} ms, "
+            f"torch.linalg.svd {svd:.4f} ms, bound {work.bound_us():.2f} us ({work.bound_by()}), "
+            f"{100 * work.bound_us() / (ms * 1e3):.1f}% of bound")
+    rec["ms"] = sum(rec["shapes"][k]["ms"] * c for k, c in JACOBI_MAIN_CALLS.items()) / JACOBI_PER_CHUNK
+    return rec
+
+
 def phase_kernel5(pipeline, frames: torch.Tensor) -> dict:
     """Kernel 5 against its twin at the pyramid's level shapes, on resized undistorted frames;
     kernels 2 and 3 timed at each level's keypoint capacity, as the pyramid path calls them."""
@@ -1199,6 +1259,9 @@ def phase_pnp(camera, config_dir: Path, chunks: torch.Tensor, valid: torch.Tenso
     drive(pipe, chunks, valid, seed=1, pnp=True)  # warm-up
     result, run_s, counts, state = drive(pipe, chunks, valid, seed=0, pnp=True)
     check_launches("pnp", counts, {**{k: n_chunks for k in uses}, "fused_frontend_nms_batch": 0})
+    if counts["jacobi_nullvec"] < JACOBI_PER_CHUNK * n_chunks:  # the two-view stage's, and any PnP refit's
+        raise AssertionError(f"pnp: jacobi_nullvec launched {counts['jacobi_nullvec']} times, expected at "
+                             f"least {JACOBI_PER_CHUNK * n_chunks}")
     fps = check_trajectory("pnp", result, run_s, card)
     # The reference's check (>= 30% of valid points seen in >= 2 keyframes) holds over the points the
     # 8-keyframe window still observes: a recycled keyframe slot takes its observations with it, so
@@ -3718,6 +3781,7 @@ def main() -> int:
 
     records = phase_kernels(pipeline, frames[:BATCH])
     records.insert(1, phase_kernel5(pyramid[True], frames[:BATCH]))
+    records.append(phase_jacobi())
     phase_frontend(config_dir / "feature_detector.yml", frames_np, nms_fused=False)
     phase_frontend(pyramid_dir / "feature_detector.yml", frames_np, nms_fused=True)
 
@@ -3729,7 +3793,8 @@ def main() -> int:
     # Main path: configs/, kernels 1-4.
     drive(pipeline, chunks, valid, seed=1)  # warm-up
     result, run_s, main_counts, _ = drive(pipeline, chunks, valid, seed=0)
-    check_launches("main", main_counts, {**{k: None for k in main_uses}, "fused_frontend_nms_batch": 0})
+    check_launches("main", main_counts, {**{k: None for k in main_uses}, "fused_frontend_nms_batch": 0,
+                                         "jacobi_nullvec": JACOBI_PER_CHUNK * n_chunks})
     fps = check_trajectory("main", result, run_s, card)
 
     # Pyramid path: configs/multiscale, kernel 5 on every level, then kernel 1 on every level.
@@ -3739,7 +3804,7 @@ def main() -> int:
         fused: {"fused_frontend_nms_batch": per_level if fused else 0,
                 "fused_frontend_batch": 0 if fused else per_level,
                 "extract_brief_patches": per_level, "brief_own_bin_dots": per_level,
-                "msac_scores": None}
+                "msac_scores": None, "jacobi_nullvec": JACOBI_PER_CHUNK * n_chunks}
         for fused in (True, False)
     }
     for fused in (True, False):
@@ -3875,7 +3940,7 @@ def main() -> int:
     log(f"[main] kernels {kernel_ms:.4f} ms of a {chunk_ms:.2f} ms chunk "
         f"({100 * kernel_ms / chunk_ms:.2f}%)")
     # the same for the pyramid path with kernel 5: its four launches a chunk, kernels 2 and 3
-    # as timed at each level's keypoint capacity, kernel 4 at the main path's shapes (the same)
+    # as timed at each level's keypoint capacity, kernels 4 and 6 at the main path's shapes (the same)
     by_name = {r["name"]: r for r in records}
     k5 = by_name["fused_frontend_nms_batch"]
     pyr_chunk_ms = 1e3 * N_FRAMES / float(np.mean(pyr_fps[True])) / n_chunks
@@ -3884,6 +3949,7 @@ def main() -> int:
         "extract_brief_patches": sum(lv["extract_brief_patches_ms"] for lv in k5["per_level"]),
         "brief_own_bin_dots": sum(lv["brief_own_bin_dots_ms"] for lv in k5["per_level"]),
         "msac_scores": by_name["msac_scores"]["ms"] * pyr_counts[True]["msac_scores"] / n_chunks,
+        "jacobi_nullvec": by_name["jacobi_nullvec"]["ms"] * pyr_counts[True]["jacobi_nullvec"] / n_chunks,
     }
     pyr_total = sum(pyr_kernel_ms.values())
     log(f"[pyramid] kernels {pyr_total:.4f} ms of a {pyr_chunk_ms:.2f} ms chunk "

@@ -1,4 +1,4 @@
-"""The five CUDA kernels against their plain twins, on the card.
+"""The six CUDA kernels against their plain twins, on the card.
 
 Marked ``cuda``: every test skips (with its reason) where there is no
 CUDA device; the decision is taken inside the fixture, not at import.  The
@@ -65,6 +65,15 @@ bit for bit.
 The span recorder counts the synchronising CUDA calls made inside a step:
 a planted ``.item()`` counts 1 in its span, and the small batched VO
 step's own count is printed.
+
+Kernel 6, the batched Jacobi nullvector, at every shape the benchmark's
+cells and the PnP path give it, on random rows and on rank-deficient ones
+(a planted 2-D nullspace, zero rows, all-zero problems): the twin's bits
+(it adds each sum in the order of torch's reduce kernel), the same bits
+twice, also in the wide form past 512 lanes of registers (PnP at 2,000
+points, LO past 2,551 matches); CUDA tensors the kernel does not take
+raise; a recorded VO step counts ``jacobi.kernel`` 6 in its four spans and
+at most 6 host syncs.
 """
 
 from pathlib import Path
@@ -1331,3 +1340,118 @@ def test_unbatched_pnp_keeps_its_2d_products_on_card(dev):
         want = _ransac_pnp_2d(X, uv, valid, K, idx, 12, 1)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), M
         assert bool(got.success), M
+
+
+# Kernel 6: the batched Jacobi nullvector against its eager twin, at every shape the cells and the PnP
+# path give it: the 8-point hypotheses, LO's refits, cheirality's and triangulation's 4 x 4 systems, the
+# DLT-PnP refit, on random and on rank-deficient rows; then PnP's 12 x 12 hypotheses, a ragged tall
+# system and one sweep for each n (where a schedule unlike the twin's would show).
+# the cells' shapes, PnP's refit, a ragged one; chip_smoke's main path at batch 16; the wide form: DLT-PnP
+# at 2,000 points, LO past 2,551 matches, 4 x 4 systems past 4,092 rows
+_CELL_SHAPES = [((512, 1024, 8, 9), 3), ((512, 4, 1024, 9), 5), ((512, 4, 256, 4, 4), 4),
+                ((512, 1024, 4, 4), 8), ((64, 2048, 12), 8), ((300, 333, 9), 5),
+                ((16, 1024, 8, 9), 3), ((16, 4, 1024, 9), 5), ((16, 4, 256, 4, 4), 4), ((16, 1024, 4, 4), 8),
+                ((8, 4000, 12), 8), ((2, 4, 3000, 9), 5), ((3, 5000, 4), 8)]
+JACOBI_CASES = ([(s, w, k) for s, w in _CELL_SHAPES for k in ("random", "degenerate")]
+                + [((4096, 12, 12), 6, "random"), ((4096, 8, 9), 1, "random"), ((4096, 4, 4), 1, "random"),
+                   ((4096, 12, 12), 1, "random")])
+
+
+def _jacobi_rows(shape, kind: str, seed: int, dev) -> torch.Tensor:
+    """Gaussian rows ("random"), or rows with a planted 2-D nullspace, half of a tall system's rows
+    zero (LO's zero weights) and the first eighth of the problems all zero ("degenerate")."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=shape).astype(np.float32)
+    if kind == "degenerate":
+        m, n = shape[-2:]
+        U = np.linalg.qr(rng.normal(size=(*shape[:-2], n, 2)))[0]  # (..., n, 2) orthonormal
+        A = (A - (A @ U) @ np.swapaxes(U, -1, -2)).astype(np.float32)
+        if m > n:
+            A[..., rng.random(m) < 0.5, :] = 0.0
+        flat = A.reshape(-1, m, n)
+        flat[: len(flat) // 8] = 0.0
+    return torch.from_numpy(A).to(dev)
+
+
+@pytest.mark.parametrize("shape,sweeps,kind", JACOBI_CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{w}-{k}" for s, w, k in JACOBI_CASES])
+def test_kernel6_jacobi_against_twin(dev, shape, sweeps, kind):
+    """The twin's bits on the card: the kernel adds every sum in the order torch's reduce kernel adds
+    the twin's (``kernels/jacobi.py::reduce_tree``) and rounds every other operation as the twin's
+    eager ones do.  Also one launch, the same bits twice, unit vectors, and |v · v_twin| >= 1 - 1e-5
+    (the tolerance of ``smallest_eigvec``, ROADMAP F5), which the bits imply."""
+    from tpuslam_torch.common import geometry as tgeo
+    from tpuslam_torch.kernels import jacobi as kj
+
+    A = _jacobi_rows(shape, kind, sum(shape) + sweeps, dev)
+    before = kj.jacobi_nullvec.launches
+    got = tgeo.nullvec_jacobi(A, sweeps=sweeps)
+    assert kj.jacobi_nullvec.launches == before + 1
+    want = tgeo.nullvec_jacobi_twin(A, sweeps=sweeps)
+    assert got.shape == want.shape == (*shape[:-2], shape[-1])
+    assert torch.equal(got, tgeo.nullvec_jacobi(A, sweeps=sweeps))
+    torch.testing.assert_close(torch.linalg.vector_norm(got, dim=-1), torch.ones(got.shape[:-1], device=dev),
+                               rtol=0, atol=1e-5)
+    assert float((got * want).sum(dim=-1).abs().min()) >= 1 - 1e-5
+    differ = (got != want).any(dim=-1)
+    assert not differ.any(), f"{int(differ.sum())} of {differ.numel()} problems differ from the twin's bits"
+
+
+def test_kernel6_routing_on_card(dev):
+    """A CUDA tensor the kernel does not take (n outside {4, 9, 12}, float64, no rows) raises and runs
+    nothing; more rows than a team holds take the wide form, one launch with the twin's bits; each
+    call counts ``jacobi.kernel`` in a recorded step; an empty batch launches nothing; bad sweeps
+    raise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuslam_torch.common import geometry as tgeo
+    from tpuslam_torch.kernels import jacobi as kj
+    from tpuslam_torch.utils import profiling
+
+    before = kj.jacobi_nullvec.launches
+    for A in (torch.randn(50, 6, 5, device=dev), torch.randn(50, 8, 9, device=dev, dtype=torch.float64),
+              torch.randn(50, 0, 9, device=dev)):
+        with pytest.raises(ValueError, match="kernel 6 takes float32 rows"):
+            tgeo.nullvec_jacobi(A, sweeps=3)
+    assert kj.jacobi_nullvec.launches == before
+    wide = torch.randn(2, 3100, 9, device=dev)
+    assert kj.launch_geometry(2, 3100, 9, *kj._card(wide.device.index or 0)) is None
+    with profile(activities=[ProfilerActivity.CPU]), profiling.RECORDER.step("t.jacobi"):
+        assert torch.equal(tgeo.nullvec_jacobi(wide, sweeps=3), tgeo.nullvec_jacobi_twin(wide, sweeps=3))
+        tgeo.nullvec_jacobi(torch.randn(7, 8, 9, device=dev), sweeps=3)
+        empty = tgeo.nullvec_jacobi(torch.randn(0, 8, 9, device=dev), sweeps=3)
+    assert profiling.RECORDER.steps[-1].counters == {"jacobi.kernel": 3}
+    assert empty.shape == (0, 9) and kj.jacobi_nullvec.launches == before + 2
+    with pytest.raises(RuntimeError, match="tpuslam_jacobi_nullvec"):
+        kj.jacobi_nullvec(torch.randn(4, 8, 9, device=dev), -1)
+
+
+def test_kernel6_vo_step_counts_six_jacobi_calls_on_card(dev):
+    """A recorded step of the small batched VO step (``test_batched_vo_step_on_card``) counts
+    ``jacobi.kernel`` 6 (the hypotheses, three LO refits, cheirality, triangulation, each in its span)
+    and nothing else under ``jacobi.``, and makes no more than the parent's 6 synchronising calls."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuslam_torch.common.camera import Camera
+    from tpuslam_torch.config.schema import SlamConfig
+    from tpuslam_torch.model.slam import SlamPipeline
+    from tpuslam_torch.utils import profiling
+
+    cfg_dir = IMAGES.parent.parent.parent / "configs"
+    cfg = SlamConfig.from_yaml_dir(cfg_dir, batch_size=4)
+    cfg = dataclasses.replace(cfg, detector=dataclasses.replace(cfg.detector, max_keypoints=512),
+                              pose=dataclasses.replace(cfg.pose, num_hypotheses=256))
+    pipe = SlamPipeline(Camera.from_yaml(cfg_dir / "camera.yml"), cfg, device=dev)
+    frames = torch.stack([_full_frames(10)[2 * s: 2 * s + 4] for s in range(3)]).to(dev)
+    valid = torch.ones((3, 4), dtype=torch.bool)
+    states = [pipe.initial_state() for _ in range(3)]
+    pipe.process_chunks(frames, valid, states, [3, 4, 5])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pipe.process_chunks(frames, valid, states, [3, 4, 5])
+    step = profiling.RECORDER.steps[-1]
+    assert {k: v for k, v in step.counters.items() if k.startswith("jacobi.")} == {"jacobi.kernel": 6}
+    where = {s.name: s.counts["jacobi.kernel"] for s in step.spans if s.counts.get("jacobi.kernel")}
+    assert where == {"pose.hypotheses": 1, "pose.lo": 3, "pose.cheirality": 1, "vo.triangulate": 1}
+    assert step.counters["vo.host_syncs"] <= 6, step.counters

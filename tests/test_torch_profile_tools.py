@@ -48,7 +48,8 @@ def test_profile_stages_on_the_cpu(data_dir, cfg):
     for r in report["spans"]:
         assert r["calls"] >= 1 and math.isfinite(r["host_ms"]) and r["host_ms"] >= r["self_ms"] >= 0
         assert r["launches"] is None and r["device_ms"] is None and r["idle_ms"] is None and r["syncs"] is None
-        kernel_span = r["span"] in ("detect.corners", "detect.describe", "pose.msac")
+        kernel_span = r["span"] in ("detect.corners", "detect.describe", "pose.msac", "pose.hypotheses", "pose.lo",
+                                    "pose.cheirality", "vo.triangulate")
         assert (r["bound_us"] is not None and r["bound_us"] > 0) == kernel_span
     assert abs(sum(r["self_ms"] for r in report["spans"]) - report["step_ms"]) < 1e-6 * report["step_ms"] + 1e-9
     assert report["host_syncs"] is None and report["launches"] is None and report["device_ms"] is None

@@ -47,8 +47,21 @@ def nullvec_jacobi(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
     One-sided Jacobi SVD on ``A`` (..., m, n): each round rotates its
     disjoint column pairs at once (Givens rotations accumulated into V).
     Working on A directly never squares the condition number, so float32
-    stays accurate.
+    stays accurate.  A CUDA tensor goes to kernel 6
+    (``kernels/jacobi.py::jacobi_nullvec``: one launch; float32 rows of 4, 9
+    or 12 columns, ``ValueError`` otherwise); a CPU tensor runs
+    :func:`nullvec_jacobi_twin`.
     """
+    if A.device.type == "cuda":
+        from tpuslam_torch.kernels.jacobi import jacobi_nullvec  # that module imports this one
+
+        return jacobi_nullvec(A, sweeps)
+    return nullvec_jacobi_twin(A, sweeps)
+
+
+def nullvec_jacobi_twin(A: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
+    """:func:`nullvec_jacobi` as eager torch operations, a round of column pairs at a time: kernel
+    6's plain twin."""
     n = A.shape[-1]
     A = A.clone()
     V = torch.eye(n, dtype=A.dtype, device=A.device).expand(*A.shape[:-2], n, n).clone()

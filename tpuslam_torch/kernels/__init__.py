@@ -2,7 +2,7 @@
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain twin
 for CPU tensors, and counts its launches in an integer attribute
-``launches``; :func:`launch_counts` reads all five counts and
+``launches``; :func:`launch_counts` reads all six counts and
 :func:`reset_launch_counts` zeroes them.  Launches made in the worker
 processes of ``dist/workers.py`` reach the parent with each call's answer
 (:func:`add_launch_counts`), so :func:`launch_counts` counts them too.
@@ -16,6 +16,7 @@ _WORKER_LAUNCHES: dict[str, int] = {}  # launches reported by worker processes s
 def _wrappers():
     from tpuslam_torch.kernels.brief import brief_own_bin_dots, extract_brief_patches
     from tpuslam_torch.kernels.frontend import fused_frontend_batch, fused_frontend_nms_batch
+    from tpuslam_torch.kernels.jacobi import jacobi_nullvec
     from tpuslam_torch.kernels.pose import msac_scores
 
     return {
@@ -24,6 +25,7 @@ def _wrappers():
         "extract_brief_patches": extract_brief_patches,
         "brief_own_bin_dots": brief_own_bin_dots,
         "msac_scores": msac_scores,
+        "jacobi_nullvec": jacobi_nullvec,
     }
 
 

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuslam_torch"
-SOURCES = ("frontend.cu", "nms.cu", "brief.cu", "pose.cu")
+SOURCES = ("frontend.cu", "nms.cu", "brief.cu", "pose.cu", "jacobi.cu")
 HEADERS = ("fast.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # name: argument types (every function returns cudaGetLastError())
     "tpuslam_frontend": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
@@ -39,6 +40,7 @@ _SIGNATURES = {
     "tpuslam_extract_patches": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "tpuslam_own_bin_dots": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "tpuslam_msac_scores": (_P, _P, _P, _I, _I, _I, _P),
+    "tpuslam_jacobi_nullvec": (_P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _L, _P),
 }
 
 

@@ -17,11 +17,13 @@ booked to the innermost span open where it happened, the device launches
 device ms — the profiler's link from a launch call to what it ran, their
 shared correlation id —, the device's idle ms (each gap of the step's
 device activity by its middle) and, on the card, the host syncs.  The
-spans that run the five kernels add their bound, the least time an H100
+spans that run the six kernels add their bound, the least time an H100
 could take for those kernels at the step's shapes (``kernels/bounds.py``:
 ``detect.corners`` kernel 1 or 5, ``detect.describe`` kernels 2 and 3
 with every keypoint's bin in range and every bin used, ``pose.msac``
-kernel 4), the kernels' own device ms and the bound's share of it.  ``--pyramid`` takes ``configs/multiscale`` (4 levels) with
+kernel 4, ``pose.hypotheses``, ``pose.lo``, ``pose.cheirality`` and
+``vo.triangulate`` kernel 6), the kernels' own device ms and the bound's
+share of it.  ``--pyramid`` takes ``configs/multiscale`` (4 levels) with
 kernel 5, ``--levels`` another number of levels (8 is ORB-SLAM2's KITTI
 pyramid).  On the CPU every time is the CPU's and the device fields are
 None.
@@ -51,9 +53,9 @@ from tpuslam_torch.utils import profiling
 REPO = Path(__file__).resolve().parents[2]
 BATCH = 16
 RUNTIME = "cu"  # the name prefix of a CUDA runtime or driver call on the host (cudaLaunchKernel, cuLaunchKernel)
-# the CUDA functions of the five kernels (kernel 3 launches two), as the profiler names their launches
+# the CUDA functions of the six kernels (kernel 3 launches two), as the profiler names their launches
 KERNEL_FUNCTIONS = ("frontend_kernel", "frontend_nms_kernel", "extract_kernel", "bin_sort_kernel", "own_bin_kernel",
-                    "msac_kernel")
+                    "msac_kernel", "jacobi_kernel")
 
 
 def fixture_chunk(batch: int, directory: Path | None = None) -> np.ndarray:
@@ -71,14 +73,22 @@ def kernel_bounds(pipeline, frames: int, height: int, width: int) -> dict[str, f
     """µs: the bound of the kernels each kernel span runs in one step over ``frames`` frames."""
     from tpuslam_torch.kernels.brief import extract_patches_work, own_bin_dots_work
     from tpuslam_torch.kernels.frontend import frontend_nms_work, frontend_work
+    from tpuslam_torch.kernels.jacobi import jacobi_work
     from tpuslam_torch.kernels.pose import msac_work
 
     det = pipeline.detector
     c = det.config
     levels = det._feasible_levels(height, width) if c.num_levels > 1 else [(0, height, width)]
     caps = det._level_capacities(levels) if c.num_levels > 1 else [c.max_keypoints]
-    out = {"detect.corners": 0.0, "pose.msac": msac_work(frames, pipeline.config.pose.num_hypotheses,
-                                                         c.max_keypoints).bound_us()}
+    pose = pipeline.config.pose
+    m = c.max_keypoints  # match slots a pair
+    out = {"detect.corners": 0.0, "pose.msac": msac_work(frames, pose.num_hypotheses, m).bound_us(),
+           # kernel 6: LO's three refits of the best 4, cheirality's 4 x 256 and triangulation's 4 x 4 systems
+           "pose.lo": 3 * jacobi_work(frames * min(4, pose.num_hypotheses), m, 9, 5).bound_us(),
+           "pose.cheirality": jacobi_work(frames * 4 * min(256, m), 4, 4, 4).bound_us(),
+           "vo.triangulate": jacobi_work(frames * m, 4, 4, 8).bound_us()}
+    if pose.sample_size == 8:  # the five-point solver takes the hypotheses' place
+        out["pose.hypotheses"] = jacobi_work(frames * pose.num_hypotheses, 8, 9, 3).bound_us()
     for (_, h, w), k in zip(levels, caps):
         work = frontend_nms_work if det._fused_nms_ok(h, w, k) else frontend_work
         out["detect.corners"] += work(frames, h, w).bound_us()
